@@ -1,0 +1,38 @@
+"""Connected components on the host.
+
+Counterpart of `boa_tpu/ops/connected_components.py` (`label`,
+`largest_component`, `filter_components_by_size`) on `scipy.ndimage.label`,
+the reference's own substrate (the JAX package's native union-find library
+is not used by the port). Connectivity 1 = 6-neighbourhood, 3 = 26.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy import ndimage
+
+
+def label(mask: np.ndarray, connectivity: int = 1) -> tuple[np.ndarray, int]:
+    structure = ndimage.generate_binary_structure(3, connectivity)
+    labels, n = ndimage.label(np.asarray(mask, dtype=bool), structure=structure)
+    return labels.astype(np.int32), int(n)
+
+
+def largest_component(mask: np.ndarray, connectivity: int = 1) -> np.ndarray:
+    """uint8 mask of the largest connected component."""
+    labels, n = label(mask, connectivity)
+    if n == 0:
+        return np.zeros(mask.shape, np.uint8)
+    sizes = np.bincount(labels.ravel(), minlength=n + 1)
+    sizes[0] = 0
+    return (labels == np.argmax(sizes)).astype(np.uint8)
+
+
+def filter_components_by_size(mask: np.ndarray, interval,
+                              connectivity: int = 1) -> np.ndarray:
+    """Keep components with interval[0] < size <= interval[1]."""
+    labels, n = label(mask, connectivity)
+    sizes = np.bincount(labels.ravel(), minlength=n + 1)
+    keep = (sizes > interval[0]) & (sizes <= interval[1])
+    keep[0] = False
+    return keep[labels].astype(np.uint8)

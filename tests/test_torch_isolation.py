@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: importing every module of boa_tpu_torch
+loads neither JAX nor the JAX package, and its entry points default to the
+card and raise without it unless the caller asks for the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import boa_tpu_torch
+for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
+    importlib.import_module(m.name)
+bad = [k for k in sys.modules
+       if k in ("jax", "jaxlib", "boa_tpu") or k.startswith(("jax.", "jaxlib.", "boa_tpu."))]
+print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20  # every subpackage was walked
+
+
+_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+boa_tpu\b"
+                     r"|from\s+boa_tpu(\.|\s+import\b))", re.M)
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    files = sorted((ROOT / "boa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
+    assert not offenders
+
+
+def test_chip_smoke_fails_without_card_or_package(tmp_path):
+    """The smoke script exits non-zero, printing no result line, when CUDA is
+    unavailable, and when it sits alone without the package."""
+    runs = [subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                           capture_output=True, text=True, timeout=120,
+                           env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})]
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs.append(subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                               capture_output=True, text=True, timeout=120,
+                               env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"}))
+    for r in runs:
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.inference.predictor import Predictor
+    from boa_tpu_torch.io.nifti import NiftiImage
+    from boa_tpu_torch.models.unet import PlainConvUNet
+    from boa_tpu_torch.plans.plans import synthetic_plans
+    from boa_tpu_torch.weights.convert import params_from_numpy
+    from boa_tpu_torch.weights.store import (ModelStore, create_synthetic_model,
+                                             init_params_numpy)
+
+    plans = synthetic_plans(num_classes=3, patch_size=(16, 16, 16),
+                            features=(4, 8))
+    cfg = plans.arch_config()
+    params = init_params_numpy(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlainConvUNet(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(plans=plans, fold_params=[params])
+    create_synthetic_model(tmp_path, 297, "t", num_classes=3,
+                           trainer="nnUNetTrainer_4000epochs_NoMirroring",
+                           patch_size=(16, 16, 16), features=(4, 8))
+    img = NiftiImage(data=np.zeros((20, 20, 20), np.int16),
+                     affine=np.diag([3.0, 3.0, 3.0, 1.0]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict_image(img, "total", ModelStore(tmp_path), fast=True)
+    # the CPU only when asked for
+    assert PlainConvUNet(cfg, device="cpu").seg_heads[0].weight.device.type == "cpu"
+    pred = Predictor(plans=plans, fold_params=[params], device="cpu")
+    assert pred.predict(np.zeros((16, 16, 16), np.float32), (3.0, 3.0, 3.0)).shape \
+        == (16, 16, 16)
