@@ -102,6 +102,9 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn = libs["transpconv"].boa_transpconv2_fwd
     fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = libs["conv_in_act"].boa_conv_in_act_fwd
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    fn.restype = i
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -1,0 +1,336 @@
+// Wide-channel fused 3x3x3 'same' conv with input-side instance-norm +
+// LeakyReLU and per-channel output sums, for Hopper (sm_90a): bf16 in,
+// fp32 accumulate, one sample.
+//
+// Replaces: boa_tpu/ops/pallas_conv.py `_conv_kernel` (K5), the kernel of
+// `conv3d_in_act`, which the fused U-Net forward runs for every stride-1
+// 3x3x3 conv block. Contract, per input channel ci and output channel co:
+//   act(x)  = LeakyReLU_s((x - mean) * scale + beta), scale = inv_std*gamma,
+//             s a per-channel slope (1 = identity), zero outside the volume
+//             AFTER act (torch pads the normalized tensor with zeros)
+//   y[o]    = bias + sum_{d, ci} w[d, ci, co] * act(x)[o + d - 1]
+//   sums    += (sum y, sum y^2) over live output voxels, from fp32 values
+// Rounding points follow the reference: x arrives in bf16, the norm runs in
+// fp32, act is rounded to bf16 for the tensor cores, the weights are bf16,
+// the accumulator and the bias are fp32, y is stored in bf16 or fp32.
+//
+// What bounds it on an H100: at the fused forward's shapes (128^3 down to
+// 4^3 voxels, cin 1..640, cout 32..320) every call but the 1->32 input conv
+// does 100-4000 FLOP per compulsory byte, so it is bound by the bf16 tensor
+// cores (989 TFLOP/s), not by the 3.35 TB/s memory; the 8^3 and 4^3 calls
+// are too small to fill 132 SMs at all. The design keeps the tensor cores
+// fed from on-chip memory, at any width:
+//
+// An implicit GEMM with M = output voxels, N = cout and K = 27 * cin. A block
+// of 8 warps owns a brick of 4 x TY x 16 output voxels (TY = 4 or 8) and one
+// tile of BN = 64 output channels (32 when cout <= 32); N tiles run on the
+// grid's y axis, so cout 320 is five tiles. K is walked in chunks of CK = 32
+// input channels (16 when cin <= 16): each chunk's haloed window
+// (6 x (TY+2) x 18 voxels) is staged into shared memory with norm + act
+// applied on the way, so the halo is zero after act and normalized
+// activations never touch device memory; then all 27 taps of the chunk are
+// multiplied out of it. Chunking bounds the window at any cin (the 640-wide
+// decoder concat is 20 chunks). The window keeps channels innermost with a
+// voxel stride of CK + 8, so the 16 output z of one A fragment are 16
+// shared-memory rows that `ldmatrix` reads without bank conflicts. Each warp
+// holds MW A fragments against the block's BN columns (64 fp32 accumulators
+// a thread) and multiplies with `mma.sync` m16n8k16. B fragments are packed
+// by the wrapper in the exact per-lane register order, chunk-major per N
+// tile, so a warp reads them with coalesced 16-byte loads that the block's
+// eight warps share through L1. Padded input channels have scale 0 (their
+// act is 0) and zero weights. The epilogue adds the fp32 bias, stores y from
+// registers and reduces sum/sum^2 with warp shuffles and shared memory
+// before one atomicAdd per channel and block. Two blocks share an SM (at
+// most 128 registers a thread), so one block's staging overlaps the other's
+// products. Not done yet (later work): split-K for the 8^3 / 4^3 calls
+// (5-20 blocks on 132 SMs), staging the next chunk while the current one
+// multiplies, weights in shared memory, wgmma + TMA.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_common.cuh"
+
+namespace {
+
+using boa::act8;
+using boa::ldmatrix_x4;
+using boa::mma_bf16;
+using boa::store2;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTX = 4;     // output x per brick
+constexpr int kTZ = 16;    // output z per brick: one 16-row A fragment
+constexpr int kWX = kTX + 2, kWZ = kTZ + 2;
+constexpr int kBatch = 4;  // staging units whose loads a thread keeps in flight
+
+// Brick geometry for a BN-column tile: 64 accumulators a thread either way.
+template <int BN>
+struct Brick {
+  static constexpr int NT = BN / 8;             // n8 column tiles
+  static constexpr int NB = BN / 16;            // 16-byte B loads per lane and k step
+  static constexpr int MW = 16 / NT;            // A fragments per warp
+  static constexpr int TY = kWarps * MW / kTX;  // output y per brick
+  static constexpr int WY = TY + 2;             // window y rows
+};
+
+template <int BN, int CK, typename OutT>
+__global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 registers
+    conv_in_act_kernel(const __nv_bfloat16* __restrict__ x,  // (X, Y, Z, cin)
+                       const float* __restrict__ norm,       // (4, nchunks * CK)
+                       const uint4* __restrict__ wpk,        // B fragments, see boa_conv_in_act_fwd
+                       const float* __restrict__ bias,       // (cout_p,)
+                       OutT* __restrict__ y,                 // (X, Y, Z, cout_p)
+                       float* __restrict__ sums,             // (2, cout_p)
+                       int X, int Y, int Z, int cin, int nchunks, int cout_p) {
+  using B = Brick<BN>;
+  constexpr int MW = B::MW, NT = B::NT, NB = B::NB, TY = B::TY, WY = B::WY;
+  constexpr int CS = CK + 8;  // window voxel stride: (CS / 8) odd keeps ldmatrix conflict-free
+  constexpr int KS = CK / 16;  // k16 steps per chunk and tap
+  constexpr int C8 = CK / 8;   // 16-byte staging units per voxel and chunk
+  constexpr int UNITS = kWX * WY * kWZ * C8;
+  constexpr int CHUNK_B = 27 * KS * NB * 32;  // uint4 of B per chunk and N tile
+  const int cin_k = nchunks * CK;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* normp = reinterpret_cast<float*>(smem);                                 // (4, cin_k)
+  float* red = normp + 4 * cin_k;                                                // (kWarps, 2, BN)
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(red + kWarps * 2 * BN);  // (kWX, WY, kWZ, CS)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + TY - 1) / TY;
+  const int z0 = (blockIdx.x % nzb) * kTZ;
+  const int y0 = (blockIdx.x / nzb % nyb) * TY;
+  const int x0 = (blockIdx.x / nzb / nyb) * kTX;
+  const int nb = blockIdx.y;
+
+  for (int i = tid; i < 4 * cin_k; i += kThreads) normp[i] = norm[i];
+
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int f = 0; f < MW; ++f)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
+
+  // shared-memory byte address of this lane's ldmatrix row (row a_row,
+  // column a_col of a 16x16 A fragment) for each fragment at tap (0, 0, 0).
+  // Fragment f of warp w is the output (x, y) row r = w * MW + f of the
+  // brick; its 16 rows are the brick's 16 output z.
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  uint32_t abase[MW];
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    const int r = warp * MW + f, lx = r / TY, ly = r % TY;
+    abase[f] = static_cast<uint32_t>(__cvta_generic_to_shared(win)) +
+               (uint32_t)(((lx * WY + ly) * kWZ + a_row) * CS + a_col) * 2;
+  }
+  const bool vec = (cin & 7) == 0;
+  const uint4* wblk = wpk + (size_t)nb * nchunks * CHUNK_B + lane;
+
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // the previous chunk is consumed; normp is ready
+
+    // --- stage the chunk's window: 8 channels (16 bytes) per unit, norm +
+    //     act in fp32, zero outside the volume and past cin, round to bf16.
+    //     Each thread issues the loads of kBatch units before it uses any.
+    const int cbase = c * CK;
+    for (int u0 = tid; u0 < UNITS; u0 += kBatch * kThreads) {
+      uint4 raw[kBatch];
+      int ch[kBatch];  // first channel of the unit, -1 past the units
+      bool live[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int u = u0 + i * kThreads;
+        raw[i] = make_uint4(0u, 0u, 0u, 0u);
+        ch[i] = -1;
+        live[i] = false;
+        if (u < UNITS) {
+          const int v = u / C8;  // window voxel, (ix, iy, iz) row-major
+          const int iz = v % kWZ, iy = v / kWZ % WY, ix = v / kWZ / WY;
+          const int gx = x0 - 1 + ix, gy = y0 - 1 + iy, gz = z0 - 1 + iz;
+          ch[i] = cbase + (u % C8) * 8;
+          live[i] = gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z && ch[i] < cin;
+          if (live[i]) {
+            const __nv_bfloat16* src = x + (((size_t)gx * Y + gy) * Z + gz) * cin + ch[i];
+            if (vec) {
+              raw[i] = __ldg(reinterpret_cast<const uint4*>(src));
+            } else {
+              __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw[i]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                if (ch[i] + j < cin) e[j] = src[j];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (ch[i] < 0) continue;
+        const int u = u0 + i * kThreads;
+        const uint4 v = live[i] ? act8(raw[i], normp, cin_k, ch[i]) : make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(win + (u / C8) * CS + (u % C8) * 8) = v;
+      }
+    }
+    __syncthreads();
+
+    // --- the chunk's 27 taps x KS k steps
+    const uint4* wq = wblk + (size_t)c * CHUNK_B;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          constexpr uint32_t CS2 = CS * 2;
+          const uint32_t tap = (uint32_t)((dx * WY + dy) * kWZ + dz) * CS2;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            uint4 b[NB];
+#pragma unroll
+            for (int p = 0; p < NB; ++p) b[p] = __ldg(wq + p * 32);
+            wq += NB * 32;
+            uint32_t a[MW][4];
+#pragma unroll
+            for (int f = 0; f < MW; ++f) ldmatrix_x4(a[f], abase[f] + tap + ks * 32);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const uint32_t b0 = (j & 1) ? b[j / 2].z : b[j / 2].x;
+              const uint32_t b1 = (j & 1) ? b[j / 2].w : b[j / 2].y;
+#pragma unroll
+              for (int f = 0; f < MW; ++f) mma_bf16(acc[f][j], a[f], b0, b1);
+            }
+          }
+        }
+  }
+
+  // --- epilogue: bias, store, per-channel sums over live voxels. Lane holds
+  //     rows g and g + 8 of each fragment, columns 2t and 2t + 1 of each n8
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = nb * BN + 2 * t;
+  float bv[NT][2], s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bv[j][e] = bias[col0 + j * 8 + e];
+      s1[j][e] = 0.f;
+      s2[j][e] = 0.f;
+    }
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    const int r = warp * MW + f;
+    const int gx = x0 + r / TY, gy = y0 + r % TY;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gz = z0 + g + 8 * h;
+      if (gx < X && gy < Y && gz < Z) {
+        OutT* dst = y + (((size_t)gx * Y + gy) * Z + gz) * cout_p + col0;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float v0 = acc[f][j][2 * h] + bv[j][0];
+          const float v1 = acc[f][j][2 * h + 1] + bv[j][1];
+          store2(dst + j * 8, v0, v1);
+          s1[j][0] += v0;
+          s1[j][1] += v1;
+          s2[j][0] += v0 * v0;
+          s2[j][1] += v1 * v1;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], m);
+        s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], m);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp * 2 * BN + j * 8 + 2 * t + e] = s1[j][e];
+        red[warp * 2 * BN + BN + j * 8 + 2 * t + e] = s2[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * BN) {  // tid = which * BN + column of the tile
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w * 2 * BN + tid];
+    atomicAdd(&sums[(tid / BN) * cout_p + nb * BN + tid % BN], v);
+  }
+}
+
+template <int BN, int CK, typename OutT>
+int launch(const void* x, const void* norm, const void* w, const void* bias, void* y, void* sums,
+           int X, int Y, int Z, int cin, int nchunks, int cout_p, cudaStream_t st) {
+  using B = Brick<BN>;
+  const size_t bytes = (size_t)4 * nchunks * CK * 4 + (size_t)kWarps * 2 * BN * 4 +
+                       (size_t)kWX * B::WY * kWZ * (CK + 8) * 2;
+  auto kern = conv_in_act_kernel<BN, CK, OutT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + B::TY - 1) / B::TY, nxb = (X + kTX - 1) / kTX;
+  dim3 grid(nxb * nyb * nzb, cout_p / BN);
+  kern<<<grid, kThreads, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norm),
+      static_cast<const uint4*>(w), static_cast<const float*>(bias), static_cast<OutT*>(y),
+      static_cast<float*>(sums), X, Y, Z, cin, nchunks, cout_p);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int dispatch(const void* x, const void* norm, const void* w, const void* bias, void* y,
+             void* sums, int X, int Y, int Z, int cin, int ck, int nchunks, int cout_p, int bn,
+             cudaStream_t st) {
+  if (bn == 64 && ck == 32)
+    return launch<64, 32, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
+  if (bn == 64 && ck == 16)
+    return launch<64, 16, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
+  if (bn == 32 && ck == 32)
+    return launch<32, 32, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
+  if (bn == 32 && ck == 16)
+    return launch<32, 16, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). Returns the cudaError_t of the
+// launch (0 on success).
+//   x     (X, Y, Z, cin) bf16, contiguous, 16-byte aligned, any cin >= 1
+//   norm  (4, nchunks * ck) float32 rows [mean, inv_std * gamma, beta, slope];
+//         channels past cin need scale 0
+//   w     B fragments: for N tile nb < cout_p / bn, chunk c < nchunks,
+//         tap = (dx*3 + dy)*3 + dz, k step s < ck/16, column pair p < bn/16
+//         and lane = 4g + t, the 16 bytes at index
+//         ((((nb*nchunks + c)*27 + tap)*(ck/16) + s)*(bn/16) + p)*32 + lane
+//         hold the bf16 values w[tap, c*ck + s*16 + 8h + 2t + e,
+//         nb*bn + p*16 + 8q + g] in (q, h, e) order, zero past cin / cout
+//   bias  (cout_p,) float32;  y (X, Y, Z, cout_p) bf16 or float32 (out_f32);
+//   sums  (2, cout_p) float32, zeroed by the caller
+//   ck    16 or 32 channels per chunk;  bn 32 or 64 columns per N tile,
+//         cout_p a multiple of bn
+extern "C" int boa_conv_in_act_fwd(const void* x, const void* norm, const void* w,
+                                   const void* bias, void* y, void* sums, int X, int Y, int Z,
+                                   int cin, int ck, int nchunks, int cout_p, int bn, int out_f32,
+                                   void* stream) {
+  if (cin < 1 || nchunks * ck < cin || (nchunks - 1) * ck >= cin || bn <= 0 || cout_p % bn != 0 ||
+      X < 1 || Y < 1 || Z < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? dispatch<float>(x, norm, w, bias, y, sums, X, Y, Z, cin, ck, nchunks, cout_p,
+                                   bn, st)
+                 : dispatch<__nv_bfloat16>(x, norm, w, bias, y, sums, X, Y, Z, cin, ck, nchunks,
+                                           cout_p, bn, st);
+}

@@ -1,9 +1,18 @@
-"""Input-side normalization record and instance-norm statistics.
+"""Fused conv + input-side instance norm + LeakyReLU, wide channels (K5),
+and the helpers the conv kernel wrappers share.
 
 Counterpart of `boa_tpu/ops/pallas_conv.py` (`NormAct`, `identity_normact`,
-`stats_from_sums`). The z-packed conv kernel of that module is still to be
-ported (PERF.md kernel table, K5); the row-conv kernels of `ops/rowconv.py`
-use these helpers.
+`conv3d_in_act`, `stats_from_sums`). `conv3d_in_act` is a kernel wrapper:
+a CPU tensor takes the plain PyTorch version `conv3d_in_act_plain` (same
+contract, same bf16 rounding points); a CUDA tensor launches
+`csrc/conv_in_act.cu` or raises. Each launch adds one to
+`LAUNCHES["conv3d_in_act"]`.
+
+The reference's `plan_packing` and `pack_weights` build the TPU's z-packed
+lane layout (p z-slices share the 128 lanes) with group-shift weight
+matrices. That layout has no counterpart here: the kernel reads plain
+channels-last activations, and `pack_in_act_weights` packs the weights in
+the kernel's own fragment order.
 """
 
 from __future__ import annotations
@@ -11,6 +20,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+#: kernel launches since the last `reset_launches()`
+LAUNCHES: dict[str, int] = {"conv3d_in_act": 0}
 
 
 class NormAct(NamedTuple):
@@ -38,3 +51,190 @@ def stats_from_sums(sums: torch.Tensor, count: int, eps: float = 1e-5):
     mean = sums[..., 0, :] / count
     var = torch.clamp(sums[..., 1, :] / count - mean * mean, min=0.0)
     return mean, torch.rsqrt(var + eps)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# helpers shared with ops/rowconv.py
+# ---------------------------------------------------------------------------
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _norm_rows(norm: NormAct, slope, n: int, cin: int, cin_p: int,
+               device) -> torch.Tensor:
+    """(N, 4, cin_p) float32 rows [mean, inv_std*gamma, beta, slope]; padded
+    channels get scale 0 (their activation is 0) and slope 1."""
+    def per(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=device)
+        return torch.broadcast_to(v, (n, cin))
+
+    scale = per(norm.inv_std) * per(norm.gamma)
+    rows = torch.zeros((n, 4, cin_p), dtype=torch.float32, device=device)
+    rows[:, 3] = 1.0
+    rows[:, 0, :cin] = per(norm.mean)
+    rows[:, 1, :cin] = scale
+    rows[:, 2, :cin] = per(norm.beta)
+    rows[:, 3, :cin] = per(slope)
+    return rows
+
+
+def _bias(b, cout: int, device) -> torch.Tensor:
+    if b is None:
+        return torch.zeros(cout, dtype=torch.float32, device=device)
+    return b.to(device=device, dtype=torch.float32)
+
+
+def _conv_plain(x, norm, w, b, slope, stride, out_dtype):
+    """The fused conv on (N, X, Y, Z, cin) in plain PyTorch: x rounded to
+    bf16, norm + act in fp32, act and w rounded to bf16, fp32 products and
+    sums."""
+    n, _, _, _, cin = x.shape
+    rows = _norm_rows(norm, slope, n, cin, cin, x.device)[:, :, None, None, None]
+    xf = x.to(torch.bfloat16).float()  # the reference casts x before the norm
+    xn = (xf - rows[:, 0]) * rows[:, 1] + rows[:, 2]
+    xn = torch.where(xn >= 0, xn, xn * rows[:, 3])
+    xn = xn.to(torch.bfloat16).float()
+    wt = w.to(torch.bfloat16).float().permute(4, 3, 0, 1, 2)
+    y = F.conv3d(xn.permute(0, 4, 1, 2, 3), wt, stride=stride, padding=1)
+    y = y + _bias(b, w.shape[-1], x.device)[None, :, None, None, None]
+    sums = torch.stack([y.sum((2, 3, 4)), (y * y).sum((2, 3, 4))], dim=1)
+    return y.permute(0, 2, 3, 4, 1).to(out_dtype).contiguous(), sums
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _out_f32(out_dtype) -> int:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} not supported by the kernel")
+    return int(out_dtype == torch.float32)
+
+
+def _route(x: torch.Tensor) -> bool:
+    """True: launch the kernel (CUDA tensor); False: plain version (CPU)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# K5: conv3d_in_act
+# ---------------------------------------------------------------------------
+
+
+def _plan(cin: int, cout: int) -> tuple[int, int, int, int]:
+    """(ck, nchunks, bn, cout_p): input channels per chunk, chunks, output
+    channels per N tile and cout padded to whole tiles."""
+    ck = 16 if cin <= 16 else 32
+    bn = 32 if cout <= 32 else 64
+    return ck, -(-cin // ck), bn, _round_up(cout, bn)
+
+
+def pack_in_act_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, cin, cout) -> the K5 kernel's B fragments, bf16, zero padded
+    to whole chunks and N tiles: for N tile nb, chunk c, tap
+    (dx*3 + dy)*3 + dz, k step s, column pair p and lane 4g + t, the eight
+    values w[tap, c*ck + s*16 + 8h + 2t + e, nb*bn + p*16 + 8q + g] in
+    (q, h, e) order, i.e. the two m16n8k16 B registers of two n8 tiles, in
+    the order the lane holds them."""
+    cin, cout = w.shape[3], w.shape[4]
+    ck, nch, bn, cout_p = _plan(cin, cout)
+    wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, nch * ck - cin))
+    #                  tap  c    s        h  t  e  nb            p        q  g
+    wq = wq.reshape(27, nch, ck // 16, 2, 4, 2, cout_p // bn, bn // 16, 2, 8)
+    return wq.permute(6, 1, 0, 2, 7, 9, 4, 8, 3, 5).contiguous()
+
+
+def unpack_in_act_weights(wp: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """Inverse of `pack_in_act_weights`: (3, 3, 3, cin, cout) bf16."""
+    ck, nch, bn, cout_p = _plan(cin, cout)
+    w = wp.reshape(cout_p // bn, nch, 27, ck // 16, bn // 16, 8, 4, 2, 2, 2)
+    w = w.permute(2, 1, 3, 8, 6, 9, 0, 4, 7, 5).reshape(27, nch * ck, cout_p)
+    return w[:, :cin, :cout].reshape(3, 3, 3, cin, cout)
+
+
+def _shapes(x, w, w_packed, cin, cout) -> tuple[int, int]:
+    """(cin, cout) of a call; raises on what does not fit."""
+    cin_x = x.shape[-1]
+    cout = cout if cout is not None else (w.shape[-1] if w is not None else None)
+    if x.dim() != 4 or (cin is not None and cin != cin_x) or cout is None:
+        raise ValueError(f"conv3d_in_act: input {tuple(x.shape)}, cin {cin}, "
+                         f"cout {cout}: needs (X, Y, Z, cin) and w or cout")
+    if w_packed is None and (w is None or tuple(w.shape) != (3, 3, 3, cin_x, cout)):
+        raise ValueError(f"conv3d_in_act: weight {None if w is None else tuple(w.shape)} "
+                         f"does not fit input {tuple(x.shape)}")
+    return int(cin_x), int(cout)
+
+
+def conv3d_in_act_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
+                        b: torch.Tensor | None, *, slope: float = 1.0,
+                        out_dtype=torch.bfloat16,
+                        w_packed: torch.Tensor | None = None,
+                        cin: int | None = None, cout: int | None = None):
+    """`conv3d_in_act` in plain PyTorch, on any device."""
+    cin, cout = _shapes(x, w, w_packed, cin, cout)
+    if w_packed is not None:
+        w = unpack_in_act_weights(w_packed, cin, cout)
+    y, sums = _conv_plain(x[None], norm, w, b, slope, 1, out_dtype)
+    return y[0], sums[0]
+
+
+def _in_act_kernel(x, norm, w, b, slope, out_dtype, w_packed, cin, cout):
+    from boa_tpu_torch import _build
+
+    cin, cout = _shapes(x, w, w_packed, cin, cout)
+    if w_packed is None:
+        w_packed = pack_in_act_weights(w.to(x.device))
+    ck, nch, bn, cout_p = _plan(cin, cout)
+    if w_packed.dtype != torch.bfloat16 or w_packed.numel() != 27 * nch * ck * cout_p:
+        raise ValueError("conv3d_in_act: w_packed does not fit cin/cout")
+    dev = x.device
+    X, Y, Z, _ = x.shape
+    xq = x.to(torch.bfloat16).contiguous()  # the reference casts x before the norm
+    if xq.data_ptr() % 16:
+        xq = xq.clone()
+    wp = w_packed.to(dev).contiguous()
+    bias = torch.zeros(cout_p, dtype=torch.float32, device=dev)
+    bias[:cout] = _bias(b, cout, dev)
+    rows = _norm_rows(norm, slope, 1, cin, nch * ck, dev)
+    y = torch.empty((X, Y, Z, cout_p), dtype=out_dtype, device=dev)
+    sums = torch.zeros((2, cout_p), dtype=torch.float32, device=dev)
+    err = _build.lib("conv_in_act").boa_conv_in_act_fwd(
+        xq.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), sums.data_ptr(), X, Y, Z, cin, ck, nch, cout_p, bn,
+        _out_f32(out_dtype), _stream())
+    _build.check(err, "conv3d_in_act")
+    LAUNCHES["conv3d_in_act"] += 1
+    if cout_p != cout:
+        y, sums = y[..., :cout], sums[:, :cout]
+    return y, sums
+
+
+def conv3d_in_act(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
+                  b: torch.Tensor | None, *, slope: float = 1.0,
+                  out_dtype=torch.bfloat16,
+                  w_packed: torch.Tensor | None = None,
+                  cin: int | None = None, cout: int | None = None):
+    """y_raw = conv3d(act(IN(x_raw)), w, stride 1, 'same') + b, plus
+    per-channel (sum y, sum y^2).
+
+    x: (X, Y, Z, Cin) raw (un-normalized) activations, one sample; `norm`
+    carries the stats/affine of x's own instance norm (identity for the
+    network input). w: (3, 3, 3, Cin, Cout); b: (Cout,) or None. Returns
+    (y (X, Y, Z, Cout) out_dtype, sums (2, Cout) float32 = [sum y, sum y^2]).
+    Pass `w_packed` (from `pack_in_act_weights`) plus cin/cout to skip the
+    per-call packing. Weights are rounded to bf16 either way."""
+    if _route(x):
+        return _in_act_kernel(x, norm, w, b, slope, out_dtype, w_packed, cin, cout)
+    return conv3d_in_act_plain(x, norm, w, b, slope=slope, out_dtype=out_dtype,
+                               w_packed=w_packed, cin=cin, cout=cout)

@@ -24,8 +24,9 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from boa_tpu_torch.ops.pallas_conv import (NormAct, identity_normact,  # noqa: F401
-                                           stats_from_sums)
+from boa_tpu_torch.ops.pallas_conv import (  # noqa: F401
+    NormAct, _bias, _conv_plain, _norm_rows, _out_f32, _round_up, _route,
+    _stream, identity_normact, stats_from_sums)
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES: dict[str, int] = {"conv3d_rows": 0, "conv3d_rows_stride2": 0,
@@ -42,51 +43,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def _norm_rows(norm: NormAct, slope, n: int, cin: int, cin_p: int,
-               device) -> torch.Tensor:
-    """(N, 4, cin_p) float32 rows [mean, inv_std*gamma, beta, slope]; padded
-    channels get scale 0 (their activation is 0) and slope 1."""
-    def per(v):
-        v = torch.as_tensor(v, dtype=torch.float32, device=device)
-        return torch.broadcast_to(v, (n, cin))
-
-    scale = per(norm.inv_std) * per(norm.gamma)
-    rows = torch.zeros((n, 4, cin_p), dtype=torch.float32, device=device)
-    rows[:, 3] = 1.0
-    rows[:, 0, :cin] = per(norm.mean)
-    rows[:, 1, :cin] = scale
-    rows[:, 2, :cin] = per(norm.beta)
-    rows[:, 3, :cin] = per(slope)
-    return rows
-
-
-def _bias(b, cout: int, device) -> torch.Tensor:
-    if b is None:
-        return torch.zeros(cout, dtype=torch.float32, device=device)
-    return b.to(device=device, dtype=torch.float32)
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-
-
-def _conv_plain(x, norm, w, b, slope, stride, out_dtype):
-    n, _, _, _, cin = x.shape
-    rows = _norm_rows(norm, slope, n, cin, cin, x.device)[:, :, None, None, None]
-    xf = x.to(torch.bfloat16).float()  # the reference casts x before the norm
-    xn = (xf - rows[:, 0]) * rows[:, 1] + rows[:, 2]
-    xn = torch.where(xn >= 0, xn, xn * rows[:, 3])
-    xn = xn.to(torch.bfloat16).float()
-    wt = w.to(torch.bfloat16).float().permute(4, 3, 0, 1, 2)
-    y = F.conv3d(xn.permute(0, 4, 1, 2, 3), wt, stride=stride, padding=1)
-    y = y + _bias(b, w.shape[-1], x.device)[None, :, None, None, None]
-    sums = torch.stack([y.sum((2, 3, 4)), (y * y).sum((2, 3, 4))], dim=1)
-    return y.permute(0, 2, 3, 4, 1).to(out_dtype).contiguous(), sums
 
 
 def conv3d_rows_plain(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16):
@@ -108,16 +67,6 @@ def transpconv2_rows_plain(x, w, *, out_dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _out_f32(out_dtype) -> int:
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype {out_dtype} not supported by the kernel")
-    return int(out_dtype == torch.float32)
 
 
 def pack_conv_weights(w: torch.Tensor, cin_k: int, cout_p: int) -> torch.Tensor:
@@ -198,15 +147,6 @@ def _transp_kernel(x, w, out_dtype):
     _build.check(err, "transpconv2_rows")
     LAUNCHES["transpconv2_rows"] += 1
     return y[..., :cout] if cout_p != cout else y
-
-
-def _route(x: torch.Tensor) -> bool:
-    """True: launch the kernel (CUDA tensor); False: plain version (CPU)."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}")
 
 
 # ---------------------------------------------------------------------------

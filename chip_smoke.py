@@ -14,15 +14,23 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 3. forward  - the full-width total_fast U-Net on one 128^3 tile: the kernel
               composite against the same composite on the plain versions
               (argmax agreement > 0.99), and the time per tile
-4. study    - a small study through predict_image on the card against the
+4. fused    - the wide-channel conv kernel (K5) against its plain version at
+              each of the 17 convs of the fused forward (same bars and
+              timings as phase 2), then the full-width fused forward on the
+              same tile and model as phase 3: argmax agreement > 0.99 with
+              the same forward on the plain K5 and > 0.98 with the eager
+              forward, exactly 17 K5 launches, and its time per tile beside
+              the composite's and the eager forward's
+5. study    - a small study through predict_image on the card against the
               same call on the CPU (labels agree > 0.99), then the
               512x512x300 fast-total study (one warm-up, three timed runs)
               with per-stage spans, peak memory and the kernel launch
-              counts, which must equal tiles x (4, 1, 1) on every run
+              counts, which must equal tiles x (4, 1, 1) on every run, with
+              no K5 launch
 
-With --profile, the study phase adds one more run under torch.profiler
-(device busy share, kernels by device time). Each phase prints one JSON
-line. Then come the kernel summary line
+With --profile, the fused and study phases each add one more run under
+torch.profiler (device busy share, kernels by device time). Each phase
+prints one JSON line. Then come the kernel summary line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -47,12 +55,29 @@ REPLACES = {
     "conv3d_rows": "boa_tpu/ops/rowconv.py:78, boa_tpu/ops/rowconv.py:334",
     "conv3d_rows_stride2": "boa_tpu/ops/rowconv.py:426",
     "transpconv2_rows": "boa_tpu/ops/rowconv.py:620",
+    "conv3d_in_act": "boa_tpu/ops/pallas_conv.py:100",
 }
 SOURCES = {
     "conv3d_rows": "boa_tpu_torch/csrc/rowconv.cu",
     "conv3d_rows_stride2": "boa_tpu_torch/csrc/rowconv.cu",
     "transpconv2_rows": "boa_tpu_torch/csrc/transpconv.cu",
+    "conv3d_in_act": "boa_tpu_torch/csrc/conv_in_act.cu",
 }
+# the 17 K5 calls of one fused total_fast forward on a 128^3 tile:
+# (extent, cin, cout, whether a norm is pending on the input). The network
+# input, the conv after each stride-2 block and the decoder concats arrive
+# materialized (identity norm, slope 1); the others carry the previous
+# conv's instance norm (slope 0.01).
+FUSED_CONVS = [
+    (128, 1, 32, False), (128, 32, 32, True),
+    (64, 64, 64, False), (32, 128, 128, False), (16, 256, 256, False),
+    (8, 320, 320, False), (4, 320, 320, False),
+    (8, 640, 320, False), (8, 320, 320, True),
+    (16, 512, 256, False), (16, 256, 256, True),
+    (32, 256, 128, False), (32, 128, 128, True),
+    (64, 128, 64, False), (64, 64, 64, True),
+    (128, 64, 32, False), (128, 32, 32, True),
+]
 
 
 def emit(obj) -> None:
@@ -103,8 +128,8 @@ def phase_device(torch, _build) -> dict:
     return {"smi": smi}
 
 
-def _norm(torch, rc, rng, n, cin, dev):
-    return rc.NormAct(
+def _norm(torch, ops, rng, n, cin, dev):
+    return ops.NormAct(
         mean=torch.tensor(rng.normal(size=(n, cin)) * 0.1, dtype=torch.float32, device=dev),
         inv_std=torch.tensor(1.0 + rng.random((n, cin)), dtype=torch.float32, device=dev),
         gamma=torch.tensor(1.0 + 0.1 * rng.normal(size=cin), dtype=torch.float32, device=dev),
@@ -242,6 +267,97 @@ def phase_forward(torch, rc) -> dict:
     return res
 
 
+def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], dict]:
+    """K5 against its plain version at the 17 convs of the fused forward,
+    then the full-width fused forward (with `profile_run`, one more under
+    torch.profiler)."""
+    import torch.nn.functional as F
+
+    from boa_tpu_torch.models.unet import cast_model
+    from boa_tpu_torch.models.unet_fused import pack_unet_params, unet_forward_fused
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cases = []
+    for s, cin, cout, pending in FUSED_CONVS:
+        x = torch.tensor(rng.normal(size=(s, s, s, cin)), dtype=torch.bfloat16, device=dev)
+        w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) * (1.0 / (27 * cin) ** 0.5),
+                         dtype=torch.bfloat16, device=dev)
+        b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.bfloat16, device=dev)
+        if pending:
+            norm = _norm(torch, pc, rng, 1, cin, dev)
+            norm, slope = norm._replace(mean=norm.mean[0], inv_std=norm.inv_std[0]), 0.01
+        else:
+            norm, slope = pc.identity_normact(cin, dev), 1.0
+        wp = pc.pack_in_act_weights(w)
+        kern = lambda: pc.conv3d_in_act(x, norm, None, b, slope=slope,  # noqa: E731
+                                        w_packed=wp, cin=cin, cout=cout)
+        plain = lambda: pc.conv3d_in_act_plain(x, norm, w, b, slope=slope)  # noqa: E731
+        wt = w.permute(4, 3, 0, 1, 2).contiguous()
+        lib = lambda: F.conv3d(x[None].permute(0, 4, 1, 2, 3), wt, b, padding=1)  # noqa: E731
+        y, sums = kern()
+        torch.cuda.synchronize()
+        yr, sr = plain()
+        err = float((y.float() - yr.float()).abs().max())
+        rel_sums = float((sums - sr).abs().max() / sr[1].abs().max())
+        ok = bool(torch.allclose(y.float(), yr.float(), rtol=2e-2, atol=2e-2)) \
+            and rel_sums <= 1e-2 and y.shape == (s, s, s, cout)
+        nbytes = (x.numel() * 2 + w.numel() * 2 + cout * 2 + 4 * cin * 4
+                  + s ** 3 * cout * 2 + 2 * cout * 4)
+        bytes_ms, ops_ms = bound(nbytes, 2.0 * s ** 3 * 27 * cin * cout)
+        cases.append({"name": "conv3d_in_act", "spatial": s, "cin": cin, "cout": cout,
+                      "pending_norm": pending, "max_abs_err": err,
+                      "rel_err_sums": rel_sums,
+                      "kernel_ms": time_ms(torch, kern, 10),
+                      "plain_ms": time_ms(torch, plain, 3),
+                      "library_ms": time_ms(torch, lib, 10),
+                      "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ok": ok})
+        del x, w, y, yr
+        torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        emit({"phase": "fused", "cases": cases})
+        raise AssertionError(f"K5 disagrees with its plain version: {bad}")
+
+    res = {}
+    xb = torch.tensor(np.random.default_rng(3).normal(size=(1, 128, 128, 128, 1)),
+                      dtype=torch.bfloat16, device=dev)
+    x = xb[0]
+    with torch.no_grad():
+        model = cast_model(_total_fast_model(torch, 297, True), torch.bfloat16)
+        packed = pack_unet_params(model)
+        pc.reset_launches()
+        rc.reset_launches()
+        got = unet_forward_fused(model, packed, x).float()
+        torch.cuda.synchronize()
+        res["launches"] = pc.LAUNCHES["conv3d_in_act"]
+        res["rowconv_launches"] = dict(rc.LAUNCHES)
+        plain = unet_forward_fused(model, packed, x, conv=pc.conv3d_in_act_plain).float()
+        eager = model.forward_eager(xb)[0].float()
+        assert got.shape == (128, 128, 128, 118) and bool(torch.isfinite(got).all())
+        res.update(
+            argmax_agree_plain=float((got.argmax(-1) == plain.argmax(-1)).float().mean()),
+            argmax_agree_eager=float((got.argmax(-1) == eager.argmax(-1)).float().mean()),
+            max_abs_err_plain=float((got - plain).abs().max()),
+            logit_absmax=float(plain.abs().max()))
+        del got, plain, eager
+        res["ms_per_tile_fused"] = time_ms(torch, lambda: unet_forward_fused(model, packed, x), 5)
+        res["ms_per_tile_fused_plain"] = time_ms(
+            torch, lambda: unet_forward_fused(model, packed, x, conv=pc.conv3d_in_act_plain), 2)
+        res["ms_per_tile_composite"] = time_ms(torch, lambda: model(xb, rc.KERNELS), 5)
+        res["ms_per_tile_eager_cudnn"] = time_ms(torch, lambda: model.forward_eager(xb), 5)
+        if profile_run:
+            res["profile"] = _profile(torch, lambda: unet_forward_fused(model, packed, x))
+        del model, packed
+        torch.cuda.empty_cache()
+    emit({"phase": "fused", "cases": cases, **res})
+    if res["launches"] != len(FUSED_CONVS) or any(res["rowconv_launches"].values()):
+        raise AssertionError(f"fused forward launches {res}")
+    if res["argmax_agree_plain"] <= 0.99 or res["argmax_agree_eager"] <= 0.98:
+        raise AssertionError(f"fused forward argmax agreement {res}")
+    return cases, res
+
+
 def _bench_ct(shape, spacing):
     """The bench's synthetic anatomy: air, a soft-tissue ellipse, a dense
     core and mild noise."""
@@ -306,7 +422,7 @@ def _profile(torch, run) -> dict:
             "top": [{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:15]]}
 
 
-def phase_study(torch, rc, profile_run: bool = False) -> dict:
+def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
     from boa_tpu_torch.inference.pipeline import predict_image
     from boa_tpu_torch.tasks.class_maps import get_class_map
 
@@ -318,12 +434,14 @@ def phase_study(torch, rc, profile_run: bool = False) -> dict:
         store = _store(tmp, (32, 64, 128), (32, 32, 32), label_names, True)
         img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
         rc.reset_launches()
+        pc.reset_launches()
         gpu = predict_image(img, "total", store, fast=True, device="cuda").seg.data
-        launches_small = dict(rc.LAUNCHES)
+        launches_small = dict(rc.LAUNCHES, **pc.LAUNCHES)
         cpu = predict_image(img, "total", store, fast=True, device="cpu").seg.data
         res["small_agree"] = float((gpu == cpu).mean())
         res["small_launches"] = launches_small
-        assert gpu.shape == img.shape and min(launches_small.values()) > 0
+        assert gpu.shape == img.shape and min(launches_small[k] for k in rc.LAUNCHES) > 0
+        assert launches_small["conv3d_in_act"] == 0, launches_small
         assert res["small_agree"] > 0.99, res
 
     # --- the 512x512x300 fast-total study
@@ -336,13 +454,14 @@ def phase_study(torch, rc, profile_run: bool = False) -> dict:
         for i in range(4):
             spans: dict = {}
             rc.reset_launches()
+            pc.reset_launches()
             t0 = time.perf_counter()
             r = predict_image(img, "total", store, fast=True, spans=spans)
             dt = time.perf_counter() - t0
-            launches = dict(rc.LAUNCHES)
+            launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
             tiles = spans["tiles"]
             want = {"conv3d_rows": 4 * tiles, "conv3d_rows_stride2": tiles,
-                    "transpconv2_rows": tiles}
+                    "transpconv2_rows": tiles, "conv3d_in_act": 0}
             assert tiles > 0 and launches == want, (launches, want)
             seg = r.seg.data
             assert seg.shape == shape and seg.dtype == np.uint8
@@ -364,6 +483,22 @@ def phase_study(torch, rc, profile_run: bool = False) -> dict:
     return res
 
 
+def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
+    """The kernel summary row: times and bounds summed over `mine`, the calls
+    of one tile's forward; the largest error over every `checked` call."""
+    per = [(max(c["bytes_ms"], c["ops_ms"]), c["ops_ms"] >= c["bytes_ms"]) for c in mine]
+    bound_ms = sum(b for b, _ in per)
+    ops_part = sum(b for b, by_ops in per if by_ops)
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checked),
+            "ms": sum(c["kernel_ms"] for c in mine),
+            "plain_ms": sum(c["plain_ms"] for c in mine),
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if 2 * ops_part >= bound_ms else "bytes",
+            "library_ms": sum(c["library_ms"] for c in mine)}
+
+
 def main() -> int:
     import torch
 
@@ -372,33 +507,28 @@ def main() -> int:
         return 1
     from boa_tpu_torch import _build
     from boa_tpu_torch.device import resolve_device
+    from boa_tpu_torch.ops import pallas_conv as pc
     from boa_tpu_torch.ops import rowconv as rc
 
     resolve_device("cuda")  # pins the float32 precision flags
     phase_device(torch, _build)
     cases = phase_kernels(torch, rc)
     phase_forward(torch, rc)
-    study = phase_study(torch, rc, profile_run="--profile" in sys.argv[1:])
+    profile_run = "--profile" in sys.argv[1:]
+    fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
+    study = phase_study(torch, rc, pc, profile_run)
 
     summary = []
     for name in REPLACES:
+        if name == "conv3d_in_act":  # per fused forward: its 17 calls
+            summary.append(_row(name, fused_cases, fused_cases, fused["launches"]))
+            continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32, 64->32, 32->32
         mine = [c for c in cases if c["name"] == name and c["n"] == 1]
         if name == "conv3d_rows":
             mine = mine + [c for c in mine if c["cin"] == 32]
-        per = [(max(c["bytes_ms"], c["ops_ms"]), c["ops_ms"] >= c["bytes_ms"])
-               for c in mine]
-        bound_ms = sum(b for b, _ in per)
-        ops_part = sum(b for b, by_ops in per if by_ops)
-        summary.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": study["launches"][name],
-            "max_abs_err": max(c["max_abs_err"] for c in cases if c["name"] == name),
-            "ms": sum(c["kernel_ms"] for c in mine),
-            "plain_ms": sum(c["plain_ms"] for c in mine),
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if 2 * ops_part >= bound_ms else "bytes",
-            "library_ms": sum(c["library_ms"] for c in mine)})
+        summary.append(_row(name, mine, [c for c in cases if c["name"] == name],
+                            study["launches"][name]))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
