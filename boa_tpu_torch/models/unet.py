@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -260,14 +261,51 @@ def _affine(blk: ConvBlock, c: int, device):
             b.float() if b is not None else torch.zeros(c, device=device))
 
 
+class _RowPacks(NamedTuple):
+    """The composite's kernel weights, packed once per model."""
+
+    enc0: tuple[rc.Packed, rc.Packed]
+    down: rc.Packed
+    up: rc.Packed
+    dec: tuple[rc.Packed, rc.Packed]
+
+
+def _row_packs(model: PlainConvUNet) -> _RowPacks:
+    """The packed weights of the composite's six kernel layers, cached on the
+    model and packed again when a parameter moves or changes in place (its
+    `data_ptr` or `_version`)."""
+    enc0, st = model.encoder[0], model.decoder[-1]
+    convs = (enc0[0].conv, enc0[1].conv, model.encoder[1][0].conv,
+             st.convs[0].conv, st.convs[1].conv)
+    params = [p for m in convs + (st.transp,) for p in (m.weight, m.bias)
+              if p is not None]
+    key = tuple((p.data_ptr(), p._version) for p in params)
+    cached = model.__dict__.get("_row_packs")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    c = [rc.pack_conv(_wcl(m), m.bias) for m in convs]
+    # ConvTranspose3d weight (ci, co, kx, ky, kz) -> (kx, ky, kz, ci, co)
+    up = rc.pack_transp(st.transp.weight.permute(2, 3, 4, 0, 1), st.transp.bias)
+    packs = _RowPacks((c[0], c[1]), c[2], up, (c[3], c[4]))
+    model.__dict__["_row_packs"] = (key, packs)
+    return packs
+
+
 def _rowconv_forward(model: PlainConvUNet, x: torch.Tensor,
                      ops: rc.RowOps) -> torch.Tensor:
-    """Mirror of the reference `_rowconv_forward` on channels-last tensors."""
+    """Mirror of the reference `_rowconv_forward` on channels-last tensors.
+
+    The last decoder stage's concat is built in place: stage 0's second conv
+    writes its output into the concat's last c0 channels, the stride-2 conv
+    reads it there, and the transposed conv writes `up + bias` into the
+    first c0. The reference rounds `up` to bf16 before adding the bf16 bias;
+    here the sum is rounded once."""
     cfg = model.cfg
     dt, dev = x.dtype, x.device
     n, X, Y, Z, C = x.shape
     eps, slope = cfg.norm_eps, cfg.nonlin_slope
     c0 = cfg.features_per_stage[0]
+    packs = _row_packs(model)
 
     def normact(blk, sums, count, c):
         mean, inv_std = rc.stats_from_sums(sums, count, eps)
@@ -280,22 +318,22 @@ def _rowconv_forward(model: PlainConvUNet, x: torch.Tensor,
         yf = (y.float() - m[:, None, None, None]) * isd[:, None, None, None]
         return _lrelu((yf * gamma + beta).to(dt), slope)
 
-    # ---- stage 0 on the kernels
+    # ---- stage 0 on the kernels; y2 lands in the decoder concat
     enc0 = model.encoder[0]
     cnt0 = X * Y * Z
-    y1, s1 = ops.conv3d_rows(x, rc.identity_normact(C, dev), _wcl(enc0[0].conv),
-                             enc0[0].conv.bias, slope=1.0, out_dtype=dt)
+    cat = torch.empty((n, X, Y, Z, 2 * c0), dtype=dt, device=dev)
+    y1, s1 = ops.conv3d_rows(x, rc.identity_normact(C, dev), None, None,
+                             slope=1.0, out_dtype=dt, w_packed=packs.enc0[0])
     na1 = normact(enc0[0], s1, cnt0, c0)
-    y2, s2 = ops.conv3d_rows(y1, na1, _wcl(enc0[1].conv), enc0[1].conv.bias,
-                             slope=slope, out_dtype=dt)
+    y2, s2 = ops.conv3d_rows(y1, na1, None, None, slope=slope, out_dtype=dt,
+                             w_packed=packs.enc0[1], out=cat[..., c0:])
     na2 = normact(enc0[1], s2, cnt0, c0)
 
     # ---- stride-2 boundary into the eager interior
     enc1 = model.encoder[1]
     c1 = cfg.features_per_stage[1]
-    y3, s3 = ops.conv3d_rows_stride2(y2, na2, _wcl(enc1[0].conv),
-                                     enc1[0].conv.bias, slope=slope,
-                                     out_dtype=dt)
+    y3, s3 = ops.conv3d_rows_stride2(y2, na2, None, None, slope=slope,
+                                     out_dtype=dt, w_packed=packs.down)
     cnt1 = y3.shape[1] * y3.shape[2] * y3.shape[3]
     h = norm_lrelu(y3, enc1[0], s3, cnt1, c1).permute(0, 4, 1, 2, 3)
     for blk in enc1[1:]:
@@ -315,12 +353,8 @@ def _rowconv_forward(model: PlainConvUNet, x: torch.Tensor,
     # ---- last decoder stage on the kernels
     st = model.decoder[-1]
     yt = y.permute(0, 2, 3, 4, 1).contiguous()            # (N, X/2, Y/2, Z/2, c1)
-    # ConvTranspose3d weight (ci, co, kx, ky, kz) -> (kx, ky, kz, ci, co)
-    up = ops.transpconv2_rows(yt, st.transp.weight.permute(2, 3, 4, 0, 1),
-                              out_dtype=dt)
-    if st.transp.bias is not None:
-        up = up + st.transp.bias.to(dt)
-    cat = torch.cat([up, y2], dim=-1)
+    ops.transpconv2_rows(yt, None, None, out_dtype=dt, w_packed=packs.up,
+                         out=cat[..., :c0])
     zeros = torch.zeros((n, c0), dtype=torch.float32, device=dev)
     ones = torch.ones((n, c0), dtype=torch.float32, device=dev)
     na_cat = rc.NormAct(
@@ -332,11 +366,11 @@ def _rowconv_forward(model: PlainConvUNet, x: torch.Tensor,
     slope_vec = torch.cat([torch.ones(c0, device=dev),
                            torch.full((c0,), slope, device=dev)])
     convs = st.convs
-    y4, s4 = ops.conv3d_rows(cat, na_cat, _wcl(convs[0].conv), convs[0].conv.bias,
-                             slope=slope_vec, out_dtype=dt)
+    y4, s4 = ops.conv3d_rows(cat, na_cat, None, None, slope=slope_vec,
+                             out_dtype=dt, w_packed=packs.dec[0])
     na4 = normact(convs[0], s4, cnt0, c0)
-    y5, s5 = ops.conv3d_rows(y4, na4, _wcl(convs[1].conv), convs[1].conv.bias,
-                             slope=slope, out_dtype=dt)
+    y5, s5 = ops.conv3d_rows(y4, na4, None, None, slope=slope, out_dtype=dt,
+                             w_packed=packs.dec[1])
 
     # ---- 1x1x1 head on the channels-last tensor
     xn5 = norm_lrelu(y5, convs[1], s5, cnt0, c0)

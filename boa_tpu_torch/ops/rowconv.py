@@ -15,6 +15,13 @@ launch adds one to `LAUNCHES[name]`.
   conv3d_rows          csrc/rowconv.cu, stride 1  (K1 and K4)
   conv3d_rows_stride2  csrc/rowconv.cu, stride 2  (K2)
   transpconv2_rows     csrc/transpconv.cu         (K3)
+
+Weights are packed for their kernel by `pack_conv` / `pack_transp` into a
+`Packed` (B fragments plus the fp32 bias); a caller that runs a layer many
+times packs once and passes `w_packed`. `out=` takes a channels-last view
+whose voxels are evenly spaced (a channel slice of a wider buffer, such as
+the decoder concat), and the result is written there. `prepare_launch`
+returns a wrapper's launch apart from its preparation, for timing.
 """
 
 from __future__ import annotations
@@ -44,24 +51,137 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
+# packed weights
+# ---------------------------------------------------------------------------
+
+
+class Packed(NamedTuple):
+    """One layer's weights in its kernel's order, made once per parameter."""
+
+    w: torch.Tensor     # B fragments, bf16 (see `_fragments`)
+    bias: torch.Tensor  # (cout_p,) float32, zero past cout
+    cin: int
+    cout: int
+
+
+def _fragments(wk: torch.Tensor) -> torch.Tensor:
+    """(T, K, N) bf16, K and N multiples of 16 -> the m16n8k16 B fragments:
+    for tap t, k chunk kc, column pair p and lane 4g + t', the eight values
+    w[t, kc*16 + 8h + 2t' + e, p*16 + 8q + g] in (q, h, e) order, i.e. the
+    two B registers of two n8 tiles, in the order the lane holds them."""
+    T, K, N = wk.shape
+    #                  tap kc      h  t  e  p        q  g
+    wq = wk.reshape(T, K // 16, 2, 4, 2, N // 16, 2, 8)
+    return wq.permute(0, 1, 5, 7, 3, 6, 2, 4).contiguous()
+
+
+def _unfragments(pk: torch.Tensor, T: int, K: int, N: int) -> torch.Tensor:
+    """Inverse of `_fragments`: (T, K, N)."""
+    #                   tap kc       p        g  t  q  h  e
+    w = pk.reshape(T, K // 16, N // 16, 8, 4, 2, 2, 2)
+    return w.permute(0, 1, 6, 4, 7, 2, 5, 3).reshape(T, K, N)
+
+
+def _padded_bias(b, cout: int, cout_p: int, device) -> torch.Tensor:
+    bias = torch.zeros(cout_p, dtype=torch.float32, device=device)
+    bias[:cout] = _bias(b, cout, device)
+    return bias
+
+
+def pack_conv_weights(w: torch.Tensor, cin_k: int, cout_p: int) -> torch.Tensor:
+    """(3, 3, 3, cin, cout) -> the conv kernels' B fragments, bf16, zero
+    padded to (cin_k, cout_p), tap (dx*3 + dy)*3 + dz (see `_fragments`)."""
+    cin, cout = w.shape[3], w.shape[4]
+    wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, cin_k - cin))
+    return _fragments(wq.reshape(27, cin_k, cout_p))
+
+
+@torch.no_grad()
+def pack_conv(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
+    """A 3x3x3 conv (w (3, 3, 3, cin, cout), b (cout,) or None) packed for
+    `conv3d_rows` and `conv3d_rows_stride2`."""
+    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"pack_conv: weight {tuple(w.shape)} is not 3x3x3")
+    cin, cout = int(w.shape[3]), int(w.shape[4])
+    cout_p = next((c for c in _CONV_COUT if c >= cout), None)
+    if cout_p is None:
+        raise ValueError(f"pack_conv: cout {cout} > {CONV_MAX_COUT}")
+    return Packed(pack_conv_weights(w, _round_up(cin, 16), cout_p),
+                  _padded_bias(b, cout, cout_p, w.device), cin, cout)
+
+
+def unpack_conv(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w (3, 3, 3, cin, cout) float32, b (cout,) float32) of a `Packed`."""
+    cin_k = _round_up(p.cin, 16)
+    w = _unfragments(p.w, 27, cin_k, p.bias.numel()).float()
+    return w[:, :p.cin, :p.cout].reshape(3, 3, 3, p.cin, p.cout), p.bias[:p.cout]
+
+
+@torch.no_grad()
+def pack_transp(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
+    """A 2x2x2 transposed conv (w (2, 2, 2, cin, cout) with taps (a, b, c)
+    along (x, y, z), b (cout,) or None) packed for `transpconv2_rows`: a
+    (4, cin_p, 2*cout_p) matrix per (a, b) pair with columns (c, co)."""
+    if w.dim() != 5 or tuple(w.shape[:3]) != (2, 2, 2):
+        raise ValueError(f"pack_transp: weight {tuple(w.shape)} is not 2x2x2")
+    cin, cout = int(w.shape[3]), int(w.shape[4])
+    cout_p = next((c for c in _TRANSP_COUT if c >= cout), None)
+    if cout_p is None:
+        raise ValueError(f"pack_transp: cout {cout} > {_TRANSP_COUT[-1]}")
+    cin_p = _round_up(cin, 16)
+    wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, cin_p - cin))
+    wk = wq.permute(0, 1, 3, 2, 4).reshape(4, cin_p, 2 * cout_p).contiguous()
+    return Packed(wk, _padded_bias(b, cout, cout_p, w.device), cin, cout)
+
+
+def unpack_transp(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w (2, 2, 2, cin, cout) float32, b (cout,) float32) of a `Packed`."""
+    cin_p, cout_p = _round_up(p.cin, 16), p.bias.numel()
+    w = p.w.reshape(2, 2, cin_p, 2, cout_p).permute(0, 1, 3, 2, 4).float()
+    return w[..., :p.cin, :p.cout], p.bias[:p.cout]
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 
-def conv3d_rows_plain(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16):
-    return _conv_plain(x, norm, w, b, slope, 1, out_dtype)
+def _into(out: torch.Tensor | None, y: torch.Tensor) -> torch.Tensor:
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def _plain_conv(x, norm, w, b, slope, stride, out_dtype, w_packed, out):
+    if w_packed is not None:
+        w, b = unpack_conv(w_packed)
+    y, sums = _conv_plain(x, norm, w, b, slope, stride, out_dtype)
+    return _into(out, y), sums
+
+
+def conv3d_rows_plain(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16,
+                      w_packed=None, out=None):
+    return _plain_conv(x, norm, w, b, slope, 1, out_dtype, w_packed, out)
 
 
 def conv3d_rows_stride2_plain(x, norm, w, b, *, slope=1.0,
-                              out_dtype=torch.bfloat16):
-    return _conv_plain(x, norm, w, b, slope, 2, out_dtype)
+                              out_dtype=torch.bfloat16, w_packed=None):
+    return _plain_conv(x, norm, w, b, slope, 2, out_dtype, w_packed, None)
 
 
-def transpconv2_rows_plain(x, w, *, out_dtype=torch.bfloat16):
+def transpconv2_rows_plain(x, w, b=None, *, out_dtype=torch.bfloat16,
+                           w_packed=None, out=None):
+    """fp32 products and bias, one rounding to `out_dtype` (as the kernel)."""
+    if w_packed is not None:
+        w, b = unpack_transp(w_packed)
     n, X, Y, Z, _ = x.shape
-    out = torch.einsum("nxyzi,abcio->nxaybzco", x.to(torch.bfloat16).float(),
-                       w.to(torch.bfloat16).float())
-    return out.reshape(n, 2 * X, 2 * Y, 2 * Z, w.shape[-1]).to(out_dtype)
+    y = torch.einsum("nxyzi,abcio->nxaybzco", x.to(torch.bfloat16).float(),
+                     w.to(torch.bfloat16).float())
+    y = y.reshape(n, 2 * X, 2 * Y, 2 * Z, w.shape[-1])
+    if b is not None:
+        y = y + b.to(device=y.device, dtype=torch.float32)
+    return _into(out, y.to(out_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -69,84 +189,145 @@ def transpconv2_rows_plain(x, w, *, out_dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 
 
-def pack_conv_weights(w: torch.Tensor, cin_k: int, cout_p: int) -> torch.Tensor:
-    """(3, 3, 3, cin, cout) -> the conv kernel's B fragments, bf16, zero
-    padded to (cin_k, cout_p): for tap (dx*3 + dy)*3 + dz, k chunk kc, column
-    pair p and lane 4g + t, the eight values w[tap, kc*16 + 8h + 2t + e,
-    p*16 + 8q + g] in (q, h, e) order, i.e. the two m16n8k16 B registers of
-    two n8 tiles, in the order the lane holds them."""
-    cin, cout = w.shape[3], w.shape[4]
-    wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, cin_k - cin))
-    #                  tap  kc          h  t  e  p             q  g
-    wq = wq.reshape(27, cin_k // 16, 2, 4, 2, cout_p // 16, 2, 8)
-    return wq.permute(0, 1, 5, 7, 3, 6, 2, 4).contiguous()
+def _voxel_stride(t: torch.Tensor) -> int | None:
+    """The voxel stride of a channels-last (N, X, Y, Z, C) view whose
+    channels are contiguous and whose voxels are evenly spaced (a channel
+    slice of a contiguous buffer); None for any other layout."""
+    n, X, Y, Z, C = t.shape
+    s = t.stride()
+    ld = s[3]
+    dense = ((C == 1 or s[4] == 1) and ld >= C
+             and (Y == 1 or s[2] == Z * ld)
+             and (X == 1 or s[1] == Y * Z * ld)
+             and (n == 1 or s[0] == X * Y * Z * ld))
+    return ld if dense else None
 
 
-def _conv_kernel(x, norm, w, b, slope, stride, out_dtype, name):
+def _out_buffer(out, shape, cout, cout_p, out_dtype, dev, align: int):
+    """(buffer the kernel writes, its voxel stride, copy-back target): the
+    kernel writes `out` itself when it is a channel slice it can address,
+    else a fresh (..., cout_p) buffer that the launch copies into `out`."""
+    if out is not None:
+        if tuple(out.shape) != tuple(shape) + (cout,) or out.dtype != out_dtype \
+                or out.device != dev:
+            raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not fit "
+                             f"{tuple(shape) + (cout,)} {out_dtype}")
+        ld = _voxel_stride(out)
+        if (ld is not None and cout == cout_p and out.data_ptr() % align == 0
+                and (ld * out.element_size()) % align == 0):
+            return out, ld, None
+    return torch.empty(tuple(shape) + (cout_p,), dtype=out_dtype, device=dev), cout_p, out
+
+
+def _launcher(name: str, fn, args, y, back, keep) -> Callable[[], None]:
+    """The launch of one prepared call: the kernel, its count, and the copy
+    into `back` when the kernel could not write there itself. `keep` holds
+    the tensors whose pointers are in `args` alive as long as the launch."""
     from boa_tpu_torch import _build
 
+    def launch() -> None:
+        assert keep is not None
+        _build.check(fn(*args), name)
+        LAUNCHES[name] += 1
+        if back is not None:
+            back.copy_(y)
+    return launch
+
+
+def _checked_input(name, x):
     if x.dtype != torch.bfloat16 or x.dim() != 5:
         raise ValueError(f"{name}: needs a bf16 (N, X, Y, Z, C) tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != x.shape[-1]:
-        raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit "
+
+
+def _packed(name, x, w, b, w_packed, taps, pack):
+    if w_packed is None:
+        if w is None or tuple(w.shape[:4]) != (taps,) * 3 + (x.shape[-1],):
+            raise ValueError(f"{name}: weight {None if w is None else tuple(w.shape)} "
+                             f"does not fit input {tuple(x.shape)}")
+        w_packed = pack(w.to(x.device), b)
+    if w_packed.cin != x.shape[-1]:
+        raise ValueError(f"{name}: packed weights for cin {w_packed.cin}, "
                          f"input {tuple(x.shape)}")
-    n, X, Y, Z, cin = x.shape
-    cout = int(w.shape[-1])
-    cout_p = next((c for c in _CONV_COUT if c >= cout), None)
-    if cout_p is None:
-        raise ValueError(f"{name}: cout {cout} > {CONV_MAX_COUT}")
-    dev = x.device
-    x = x.contiguous()
-    cin_k = _round_up(cin, 16)   # the kernel zero-fills channels past cin
-    wp = pack_conv_weights(w.to(dev), cin_k, cout_p)
-    bias = torch.zeros(cout_p, dtype=torch.float32, device=dev)
-    bias[:cout] = _bias(b, cout, dev)
-    rows = _norm_rows(norm, slope, n, cin, cin_k, dev)
-    Xo, Yo, Zo = ((v - 1) // stride + 1 for v in (X, Y, Z))
-    y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
-    sums = torch.zeros((n, 2, cout_p), dtype=torch.float32, device=dev)
-    err = _build.lib("rowconv").boa_rowconv_fwd(
-        x.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), sums.data_ptr(), n, X, Y, Z, cin, cin_k, cout_p, stride,
-        _out_f32(out_dtype), _stream())
-    _build.check(err, name)
-    LAUNCHES[name] += 1
-    if cout_p != cout:
-        y, sums = y[..., :cout], sums[..., :cout]
-    return y, sums
+    return w_packed
 
 
-def _transp_kernel(x, w, out_dtype):
+def _conv_call(name, stride, x, norm, w, b, *, slope=1.0,
+               out_dtype=torch.bfloat16, w_packed=None, out=None):
     from boa_tpu_torch import _build
 
-    if x.dtype != torch.bfloat16 or x.dim() != 5:
-        raise ValueError("transpconv2_rows: needs a bf16 (N, X, Y, Z, C) "
-                         f"tensor, got {x.dtype} {tuple(x.shape)}")
-    if tuple(w.shape[:3]) != (2, 2, 2) or w.shape[3] != x.shape[-1]:
-        raise ValueError(f"transpconv2_rows: weight {tuple(w.shape)} does "
-                         f"not fit input {tuple(x.shape)}")
-    n, X, Y, Z, cin = x.shape
-    cout = int(w.shape[-1])
-    cout_p = next((c for c in _TRANSP_COUT if c >= cout), None)
-    if cout_p is None:
-        raise ValueError(f"transpconv2_rows: cout {cout} > {_TRANSP_COUT[-1]}")
+    _checked_input(name, x)
     dev = x.device
+    p = _packed(name, x, w, b, w_packed, 3, pack_conv)
+    cout, cout_p = p.cout, p.bias.numel()
+    n, X, Y, Z, cin = x.shape
+    x = x.contiguous()
+    cin_k = _round_up(cin, 16)   # the kernel zero-fills channels past cin
+    rows = _norm_rows(norm, slope, n, cin, cin_k, dev)
+    Xo, Yo, Zo = ((v - 1) // stride + 1 for v in (X, Y, Z))
+    y, ldy, back = _out_buffer(out, (n, Xo, Yo, Zo), cout, cout_p, out_dtype,
+                               dev, 4)
+    back = out
+    y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
+    sums = torch.zeros((n, 2, cout_p), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
+            y.data_ptr(), sums.data_ptr(), n, X, Y, Z, cin, cin_k, cout_p,
+            stride, _out_f32(out_dtype), _stream())
+    launch = _launcher(name, _build.lib("rowconv").boa_rowconv_fwd, args,
+                       y[..., :cout], back, (x, rows, p, y, sums))
+    return launch, (y[..., :cout] if back is None else back, sums[..., :cout])
+
+
+def _transp_call(x, w, b=None, *, out_dtype=torch.bfloat16, w_packed=None,
+                 out=None):
+    from boa_tpu_torch import _build
+
+    name = "transpconv2_rows"
+    _checked_input(name, x)
+    dev = x.device
+    p = _packed(name, x, w, b, w_packed, 2, pack_transp)
+    cout, cout_p = p.cout, p.bias.numel()
+    n, X, Y, Z, cin = x.shape
     cin_p = _round_up(cin, 16)
     if cin_p != cin:
         x = F.pad(x, (0, cin_p - cin))
     x = x.contiguous()
-    wq = F.pad(w.to(device=dev, dtype=torch.bfloat16),
-               (0, cout_p - cout, 0, cin_p - cin))  # (a, b, c, ci, co)
-    wp = wq.permute(0, 1, 3, 2, 4).reshape(4, cin_p, 2 * cout_p).contiguous()
-    y = torch.empty((n, 2 * X, 2 * Y, 2 * Z, cout_p), dtype=out_dtype,
-                    device=dev)
-    err = _build.lib("transpconv").boa_transpconv2_fwd(
-        x.data_ptr(), wp.data_ptr(), y.data_ptr(), n, X, Y, Z, cin_p, cout_p,
-        _out_f32(out_dtype), _stream())
-    _build.check(err, "transpconv2_rows")
-    LAUNCHES["transpconv2_rows"] += 1
-    return y[..., :cout] if cout_p != cout else y
+    y = torch.empty((n, 2 * X, 2 * Y, 2 * Z, cout_p), dtype=out_dtype, device=dev)
+    args = (x.data_ptr(), p.w.data_ptr(), y.data_ptr(), n, X, Y, Z, cin_p,
+            cout_p, _out_f32(out_dtype), _stream())
+    fn = _build.lib("transpconv").boa_transpconv2_fwd
+    yb, bias = y[..., :cout], p.bias[:cout].to(out_dtype)
+
+    def launch() -> None:
+        assert p is not None and x is not None
+        _build.check(fn(*args), name)
+        LAUNCHES[name] += 1
+        if b is not None or w_packed is not None:
+            yb.add_(bias)
+        if out is not None:
+            out.copy_(yb)
+    return launch, (yb if out is None else out)
+
+
+def _run(call):
+    launch, res = call
+    launch()
+    return res
+
+
+def prepare_launch(name: str, *args, **kw) -> tuple[Callable[[], None], object]:
+    """(launch, result) of the wrapper `name` on CUDA tensors, with the same
+    arguments: everything the wrapper does before its launch (packing unless
+    `w_packed` is given, norm rows, output buffers) is done here, once;
+    `launch()` runs the kernel alone (and counts it) and fills `result`,
+    which the wrapper would return."""
+    if name == "conv3d_rows":
+        return _conv_call(name, 1, *args, **kw)
+    if name == "conv3d_rows_stride2":
+        return _conv_call(name, 2, *args, **kw)
+    if name == "transpconv2_rows":
+        return _transp_call(*args, **kw)
+    raise ValueError(f"unknown kernel {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -154,39 +335,54 @@ def _transp_kernel(x, w, out_dtype):
 # ---------------------------------------------------------------------------
 
 
-def conv3d_rows(x: torch.Tensor, norm: NormAct, w: torch.Tensor,
+def conv3d_rows(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
                 b: torch.Tensor | None, *, slope=1.0,
-                out_dtype=torch.bfloat16):
+                out_dtype=torch.bfloat16, w_packed: Packed | None = None,
+                out: torch.Tensor | None = None):
     """y = conv3d(act(x), w, stride 1, 'same') + b, plus per-sample sums.
 
     x: (N, X, Y, Z, cin) raw activations (`norm` carries x's own IN tail,
-    identity for the network input); w: (3, 3, 3, cin, cout); slope: scalar
-    or (cin,) LeakyReLU slope of act. Returns (y (N, X, Y, Z, cout),
-    sums (N, 2, cout) float32 = [sum y, sum y^2] from the fp32 values)."""
+    identity for the network input); w: (3, 3, 3, cin, cout), or None with
+    `w_packed` from `pack_conv`; slope: scalar or (cin,) LeakyReLU slope of
+    act; out: optional (N, X, Y, Z, cout) view to write y into. Returns
+    (y (N, X, Y, Z, cout), sums (N, 2, cout) float32 = [sum y, sum y^2] from
+    the fp32 values)."""
     if _route(x):
-        return _conv_kernel(x, norm, w, b, slope, 1, out_dtype, "conv3d_rows")
-    return conv3d_rows_plain(x, norm, w, b, slope=slope, out_dtype=out_dtype)
+        return _run(_conv_call("conv3d_rows", 1, x, norm, w, b, slope=slope,
+                               out_dtype=out_dtype, w_packed=w_packed, out=out))
+    return conv3d_rows_plain(x, norm, w, b, slope=slope, out_dtype=out_dtype,
+                             w_packed=w_packed, out=out)
 
 
-def conv3d_rows_stride2(x: torch.Tensor, norm: NormAct, w: torch.Tensor,
+def conv3d_rows_stride2(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
                         b: torch.Tensor | None, *, slope=1.0,
-                        out_dtype=torch.bfloat16):
+                        out_dtype=torch.bfloat16,
+                        w_packed: Packed | None = None):
     """`conv3d_rows` at stride 2, padding 1: out[o] = sum_d w[d] act(x)[2o+d-1]
-    (torch Conv3d(stride=2, padding=1)); output extents ceil(n/2)."""
+    (torch Conv3d(stride=2, padding=1)); output extents ceil(n/2). x may be
+    a channel slice of a wider buffer."""
     if _route(x):
-        return _conv_kernel(x, norm, w, b, slope, 2, out_dtype,
-                            "conv3d_rows_stride2")
+        return _run(_conv_call("conv3d_rows_stride2", 2, x, norm, w, b,
+                               slope=slope, out_dtype=out_dtype,
+                               w_packed=w_packed))
     return conv3d_rows_stride2_plain(x, norm, w, b, slope=slope,
-                                     out_dtype=out_dtype)
+                                     out_dtype=out_dtype, w_packed=w_packed)
 
 
-def transpconv2_rows(x: torch.Tensor, w: torch.Tensor, *,
-                     out_dtype=torch.bfloat16) -> torch.Tensor:
-    """2x2x2 stride-2 transposed conv, no bias (the caller adds it):
-    out[n, 2x+a, 2y+b, 2z+c, co] = sum_ci x[n, x, y, z, ci] w[a, b, c, ci, co]."""
+def transpconv2_rows(x: torch.Tensor, w: torch.Tensor | None,
+                     b: torch.Tensor | None = None, *,
+                     out_dtype=torch.bfloat16, w_packed: Packed | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """2x2x2 stride-2 transposed conv with its bias:
+    out[n, 2x+a, 2y+b, 2z+c, co] = sum_ci x[n, x, y, z, ci] w[a, b, c, ci, co]
+    + b[co], summed in fp32 and rounded once. `out`: optional
+    (N, 2X, 2Y, 2Z, cout) view (e.g. the first channels of the decoder
+    concat) to write into."""
     if _route(x):
-        return _transp_kernel(x, w, out_dtype)
-    return transpconv2_rows_plain(x, w, out_dtype=out_dtype)
+        return _run(_transp_call(x, w, b, out_dtype=out_dtype,
+                                 w_packed=w_packed, out=out))
+    return transpconv2_rows_plain(x, w, b, out_dtype=out_dtype,
+                                  w_packed=w_packed, out=out)
 
 
 class RowOps(NamedTuple):

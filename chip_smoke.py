@@ -51,6 +51,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
+PHASES = ("kernels", "forward", "fused", "study")
 REPLACES = {
     "conv3d_rows": "boa_tpu/ops/rowconv.py:78, boa_tpu/ops/rowconv.py:334",
     "conv3d_rows_stride2": "boa_tpu/ops/rowconv.py:426",
@@ -137,44 +138,72 @@ def _norm(torch, ops, rng, n, cin, dev):
         slope=0.01)
 
 
+def _bits(torch, t):
+    return t.contiguous().view(torch.int16)
+
+
 def phase_kernels(torch, rc) -> list[dict]:
-    """Each kernel at the main path's shapes against its plain version."""
+    """Each kernel at the main path's shapes against its plain version.
+
+    `kernel_ms` times the launch alone (`rc.prepare_launch`: weights packed,
+    norm rows and outputs allocated outside the timed function);
+    `wrapper_ms` the public call, which packs the weights on every call."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    # (kernel, n, spatial, cin, cout, slope kind); the four conv3d_rows calls
-    # of one tile are 1->32, 32->32 (stage 0) and 64->32, 32->32 (decoder)
+    # (kernel, n, spatial, cin, cout, slope kind, layout); the four
+    # conv3d_rows calls of one tile are 1->32, 32->32 (stage 0) and 64->32,
+    # 32->32 (decoder). Layout "concat" is the main path's: K2 reads and K3
+    # (with its bias) writes a 32-channel slice of the (1, 128, 128, 128, 64)
+    # decoder concat; "dense" cases take and give whole tensors.
     cases = [
-        ("conv3d_rows", 1, 128, 1, 32, "none"),
-        ("conv3d_rows", 1, 128, 32, 32, "scalar"),
-        ("conv3d_rows", 1, 128, 64, 32, "vector"),
-        ("conv3d_rows", 2, 128, 1, 32, "none"),
-        ("conv3d_rows", 2, 128, 32, 32, "scalar"),
-        ("conv3d_rows", 2, 128, 64, 32, "vector"),
-        ("conv3d_rows_stride2", 1, 128, 32, 64, "scalar"),
-        ("transpconv2_rows", 1, 64, 64, 32, None),
+        ("conv3d_rows", 1, 128, 1, 32, "none", "dense"),
+        ("conv3d_rows", 1, 128, 32, 32, "scalar", "dense"),
+        ("conv3d_rows", 1, 128, 64, 32, "vector", "dense"),
+        ("conv3d_rows", 2, 128, 1, 32, "none", "dense"),
+        ("conv3d_rows", 2, 128, 32, 32, "scalar", "dense"),
+        ("conv3d_rows", 2, 128, 64, 32, "vector", "dense"),
+        ("conv3d_rows_stride2", 1, 128, 32, 64, "scalar", "dense"),
+        ("conv3d_rows_stride2", 1, 128, 32, 64, "scalar", "concat"),
+        ("transpconv2_rows", 1, 64, 64, 32, None, "dense"),
+        ("transpconv2_rows", 1, 64, 64, 32, None, "concat"),
     ]
     out = []
-    for name, n, s, cin, cout, slope_kind in cases:
+    for name, n, s, cin, cout, slope_kind, layout in cases:
         shape = (n, s, s, s, cin)
         x = torch.tensor(rng.normal(size=shape), dtype=torch.bfloat16, device=dev)
+        sentinel_ok = None
         if name == "transpconv2_rows":
             w = torch.tensor(rng.normal(size=(2, 2, 2, cin, cout)) * 0.1,
                              dtype=torch.bfloat16, device=dev)
-            kern = lambda: rc.transpconv2_rows(x, w)  # noqa: E731
-            plain = lambda: rc.transpconv2_rows_plain(x, w)  # noqa: E731
+            b = None
+            kw = {}
+            if layout == "concat":
+                b = torch.tensor(rng.normal(size=cout), dtype=torch.bfloat16, device=dev)
+                cat = torch.full((n, 2 * s, 2 * s, 2 * s, 2 * cout), 7.0,
+                                 dtype=torch.bfloat16, device=dev)
+                kw["out"] = cat[..., :cout]
+            launch, y = rc.prepare_launch(name, x, w, b, **kw)
+            wrapper = lambda: rc.transpconv2_rows(x, w, b, **kw)  # noqa: E731
+            plain = lambda: rc.transpconv2_rows_plain(x, w, b)  # noqa: E731
             wt = w.permute(3, 4, 0, 1, 2).contiguous()  # (ci, co, kx, ky, kz)
-            lib = lambda: F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt,  # noqa: E731
+            lib = lambda: F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt, b,  # noqa: E731
                                              stride=2)
-            y = kern()
+            launch()
             torch.cuda.synchronize()
             yr = plain()
             err = float((y.float() - yr.float()).abs().max())
             ok = bool(torch.allclose(y.float(), yr.float(), rtol=2e-2, atol=2e-2))
+            if layout == "concat":   # the channels K3 does not own are untouched
+                sentinel_ok = bool(torch.equal(
+                    _bits(torch, cat[..., cout:]),
+                    _bits(torch, torch.full_like(cat[..., cout:], 7.0))))
+                ok = ok and sentinel_ok
             rel_sums = None
             vox_out = n * (2 * s) ** 3
-            nbytes = x.numel() * 2 + w.numel() * 2 + vox_out * cout * 2
+            nbytes = (x.numel() * 2 + w.numel() * 2 + (cout * 2 if b is not None else 0)
+                      + vox_out * cout * 2)
             flops = 2.0 * n * s ** 3 * cin * 8 * cout
         else:
             stride = 2 if name == "conv3d_rows_stride2" else 1
@@ -188,14 +217,21 @@ def phase_kernels(torch, rc) -> list[dict]:
                 slope = (torch.cat([torch.ones(cin // 2, device=dev),
                                     torch.full((cin - cin // 2,), 0.01, device=dev)])
                          if slope_kind == "vector" else 0.01)
+            xk = x
+            if layout == "concat":   # x lives in the concat's last cin channels
+                cat = torch.tensor(rng.normal(size=shape[:4] + (2 * cin,)),
+                                   dtype=torch.bfloat16, device=dev)
+                cat[..., cin:] = x
+                xk = cat[..., cin:]
             fn = rc.conv3d_rows if stride == 1 else rc.conv3d_rows_stride2
             pfn = rc.conv3d_rows_plain if stride == 1 else rc.conv3d_rows_stride2_plain
-            kern = lambda: fn(x, norm, w, b, slope=slope)  # noqa: E731
-            plain = lambda: pfn(x, norm, w, b, slope=slope)  # noqa: E731
+            launch, (y, sums) = rc.prepare_launch(name, xk, norm, w, b, slope=slope)
+            wrapper = lambda: fn(xk, norm, w, b, slope=slope)  # noqa: E731
+            plain = lambda: pfn(xk, norm, w, b, slope=slope)  # noqa: E731
             wt = w.permute(4, 3, 0, 1, 2).contiguous()
             lib = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, b,  # noqa: E731
                                    stride=stride, padding=1)
-            y, sums = kern()
+            launch()
             torch.cuda.synchronize()
             yr, sr = plain()
             err = float((y.float() - yr.float()).abs().max())
@@ -209,13 +245,16 @@ def phase_kernels(torch, rc) -> list[dict]:
         torch.cuda.synchronize()
         bytes_ms, ops_ms = bound(nbytes, flops)
         case = {"name": name, "n": n, "spatial": s, "cin": cin, "cout": cout,
-                "slope": slope_kind, "max_abs_err": err, "rel_err_sums": rel_sums,
-                "kernel_ms": time_ms(torch, kern, 10),
+                "slope": slope_kind, "layout": layout, "max_abs_err": err,
+                "rel_err_sums": rel_sums, "sentinel_untouched": sentinel_ok,
+                "kernel_ms": time_ms(torch, launch, 20),
+                "wrapper_ms": time_ms(torch, wrapper, 10),
                 "plain_ms": time_ms(torch, plain, 3),
                 "library_ms": time_ms(torch, lib, 10),
                 "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ok": ok}
         out.append(case)
-        del x, w, y
+        del x, w, y, launch
+        cat = xk = kw = None
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": out})
     bad = [c for c in out if not c["ok"]]
@@ -493,6 +532,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in checked),
             "ms": sum(c["kernel_ms"] for c in mine),
+            "wrapper_ms": sum(c["wrapper_ms"] for c in mine),
             "plain_ms": sum(c["plain_ms"] for c in mine),
             "bound_ms": bound_ms,
             "bound_by": "operations" if 2 * ops_part >= bound_ms else "bytes",
@@ -511,28 +551,41 @@ def main() -> int:
     from boa_tpu_torch.ops import rowconv as rc
 
     resolve_device("cuda")  # pins the float32 precision flags
-    phase_device(torch, _build)
-    cases = phase_kernels(torch, rc)
-    phase_forward(torch, rc)
+    phases = PHASES
+    for arg in sys.argv[1:]:
+        if arg.startswith("--phases="):
+            phases = tuple(arg.split("=", 1)[1].split(","))
     profile_run = "--profile" in sys.argv[1:]
-    fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
-    study = phase_study(torch, rc, pc, profile_run)
+    phase_device(torch, _build)
+    cases = phase_kernels(torch, rc) if "kernels" in phases else None
+    if "forward" in phases:
+        phase_forward(torch, rc)
+    if "fused" in phases:
+        fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
+    if "study" in phases:
+        study = phase_study(torch, rc, pc, profile_run)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if phases != PHASES:   # a partial run: no summary
+        emit({"ok": True, "phases": list(phases), "device": device})
+        return 0
 
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
             summary.append(_row(name, fused_cases, fused_cases, fused["launches"]))
             continue
-        # per tile: the four conv3d_rows calls are 1->32, 32->32, 64->32, 32->32
+        # per tile: the four conv3d_rows calls are 1->32, 32->32, 64->32,
+        # 32->32; K2 and K3 on the concat slice, as the main path runs them
         mine = [c for c in cases if c["name"] == name and c["n"] == 1]
         if name == "conv3d_rows":
             mine = mine + [c for c in mine if c["cin"] == 32]
+        else:
+            mine = [c for c in mine if c["layout"] == "concat"]
         summary.append(_row(name, mine, [c for c in cases if c["name"] == name],
                             study["launches"][name]))
     emit({"kernels": summary})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": device})
     return 0
 
 
