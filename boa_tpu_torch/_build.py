@@ -99,8 +99,11 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn = libs["rowconv"].boa_rowconv_fwd
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = libs["stride2conv"].boa_stride2conv_fwd
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    fn.restype = i
     fn = libs["transpconv"].boa_transpconv2_fwd
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     fn = libs["conv_in_act"].boa_conv_in_act_fwd
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]

@@ -1,18 +1,20 @@
-// Fused 3x3x3 conv (stride 1 or 2) with input-side instance-norm + LeakyReLU
-// and per-channel output sums, for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Fused 3x3x3 'same' conv with input-side instance-norm + LeakyReLU and
+// per-channel output sums, for Hopper (sm_90a), bf16 in, fp32 accumulate.
 //
-// Replaces: boa_tpu/ops/rowconv.py `_rowconv_kernel` (stride 1),
+// Replaces: boa_tpu/ops/rowconv.py `_rowconv_kernel` and
 // `_rowconv_g4_kernel` (the same function with four output rows packed for
-// the TPU matrix unit) and `_stride2_kernel` (stride 2). Contract, per
+// the TPU matrix unit). The stride-2 kernel is stride2conv.cu. Contract, per
 // sample n, input channel ci and output channel co:
 //   act(x)  = LeakyReLU_s((x - mean) * scale + beta), scale = inv_std*gamma,
 //             s a per-channel slope (1 = identity), zero outside the volume
 //             AFTER act (torch pads the normalized tensor with zeros)
-//   y[o]    = bias + sum_{d, ci} w[d, ci, co] * act(x)[S*o + d - 1]
+//   y[o]    = bias + sum_{d, ci} w[d, ci, co] * act(x)[o + d - 1]
 //   sums    += (sum y, sum y^2) over live output voxels, from fp32 values
 // Rounding points follow the reference: x arrives in bf16, the norm runs in
 // fp32, act is rounded to bf16 for the tensor cores, the accumulator and the
-// bias are fp32, y is stored in bf16 (or fp32 on request).
+// bias are fp32, y is stored in bf16 (or fp32 on request), each output
+// voxel's channels contiguous and the voxels ldy elements apart, so y can be
+// a channel slice of a wider buffer (the skip half of the decoder concat).
 //
 // What bounds it on an H100: at the main path's shapes (128^3 voxels,
 // 32 or 64 channels) the work is 116-232 GFLOP against 0.27-0.4 GB of
@@ -28,8 +30,7 @@
 // taps of that plane are multiplied out of it. The window keeps channels
 // innermost with a voxel stride of cin + 8 elements, so the 16 output z of
 // one A fragment are 16 shared-memory rows that `ldmatrix` reads without
-// bank conflicts; at stride 2 the window's z slots are stored even-first,
-// odd-second, so that stride-2 rows are consecutive slots too. Each warp
+// bank conflicts. Each warp
 // holds MW A fragments (16 output voxels each) against all cout columns and
 // multiplies with `mma.sync` m16n8k16 (bf16 in, fp32 accumulate), so every
 // B fragment it loads is used MW times. B fragments are packed by the
@@ -63,39 +64,27 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTZ = 32;    // output z per block: two 16-row A fragments
 constexpr int kBatch = 8;  // staging units whose loads a thread keeps in flight
 
-// Block geometry for stride S and COUT (padded) output channels.
-template <int S, int COUT>
+// Block geometry for COUT (padded) output channels.
+template <int COUT>
 struct Tile {
   static constexpr int MW = COUT <= 32 ? 4 : 2;  // A fragments per warp
   static constexpr int NT = COUT / 8;            // n8 column tiles
   static constexpr int NB = NT / 2;              // 16-byte B loads per lane and k step
   static constexpr int TY = kWarps * MW / 2;     // output y rows per block
-  static constexpr int WY = S * (TY - 1) + 3;    // window y rows
-  static constexpr int WZ = S * (kTZ - 1) + 3;   // window z slots
-  static constexpr int HALF = (WZ + 1) / 2;      // even z slots come first at stride 2
+  static constexpr int WY = TY + 2;              // window y rows
+  static constexpr int WZ = kTZ + 2;             // window z voxels
 };
 
-template <int S>
-__device__ __forceinline__ int zslot(int iz, int half) {
-  return S == 1 ? iz : ((iz & 1) ? half + (iz >> 1) : (iz >> 1));
-}
-
-// Slot offset of tap dz from the slot of input z = S * (output z).
-template <int S>
-__host__ __device__ constexpr int dz_slot(int dz, int half) {
-  return S == 1 ? dz : (dz == 1 ? half : dz / 2);
-}
-
-template <int S, int COUT, typename OutT>
+template <int COUT, typename OutT>
 __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 registers
     rowconv_kernel(const __nv_bfloat16* __restrict__ x,  // (N, X, Y, Z, cin)
                    const float* __restrict__ norm,       // (N, 4, cin_k)
                    const uint4* __restrict__ wpk,        // B fragments, see boa_rowconv_fwd
                    const float* __restrict__ bias,       // (COUT,)
-                   OutT* __restrict__ y,                 // (N, Xo, Yo, Zo, COUT)
+                   OutT* __restrict__ y,                 // (N, X, Y, Z) voxels, ldy apart
                    float* __restrict__ sums,             // (N, 2, COUT)
-                   int X, int Y, int Z, int cin, int cin_k, int Xo, int Yo, int Zo) {
-  using T = Tile<S, COUT>;
+                   int X, int Y, int Z, int cin, int cin_k, int ldy) {
+  using T = Tile<COUT>;
   constexpr int MW = T::MW, NT = T::NT, NB = T::NB, TY = T::TY, WY = T::WY, WZ = T::WZ;
   const int CS = cin_k + 8;  // window voxel stride: (CS / 8) odd keeps ldmatrix conflict-free
   const int KC = cin_k / 16;
@@ -107,10 +96,10 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = blockIdx.z, xo = blockIdx.y;
-  const int nzb = (Zo + kTZ - 1) / kTZ;
+  const int nzb = (Z + kTZ - 1) / kTZ;
   const int zo0 = (blockIdx.x % nzb) * kTZ;
   const int yo0 = (blockIdx.x / nzb) * TY;
-  const int gy0 = S * yo0 - 1, gz0 = S * zo0 - 1;
+  const int gy0 = yo0 - 1, gz0 = zo0 - 1;
 
   for (int i = tid; i < 4 * cin_k; i += kThreads) normp[i] = norm[(size_t)n * 4 * cin_k + i];
 
@@ -124,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
 
   // shared-memory byte address of this lane's ldmatrix row (row a_row,
   // column a_col of a 16x16 A fragment) for each fragment at tap (0, 0, 0):
-  // window y row S*ly, slot of input z S*zl (which is zl at both strides)
+  // window y row ly, window z zl
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_col = (lane >> 4) * 8;
   const uint32_t CS2 = (uint32_t)CS * 2;
@@ -133,7 +122,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
   for (int f = 0; f < MW; ++f) {
     const int ly = warp * (MW / 2) + f / 2, zl = (f & 1) * 16 + a_row;
     abase[f] = static_cast<uint32_t>(__cvta_generic_to_shared(plane)) +
-               (uint32_t)(S * ly * WZ + zl) * CS2 + a_col * 2;
+               (uint32_t)(ly * WZ + zl) * CS2 + a_col * 2;
   }
   const int c8k = cin_k / 8;
   const int units = WY * WZ * c8k;
@@ -141,7 +130,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
   const int steps = 9 * KC;  // (dy, dz, kc) per plane
 
   for (int dx = 0; dx < 3; ++dx) {
-    const int gx = S * xo + dx - 1;
+    const int gx = xo + dx - 1;
     if (gx < 0 || gx >= X) continue;  // block-uniform: an all-zero plane adds nothing
     __syncthreads();                  // the previous plane is consumed; normp is ready
 
@@ -167,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
           const int iz = r % WZ, iy = r / WZ;
           const int gy = gy0 + iy, gz = gz0 + iz;
           ch[i] = c0;
-          dst[i] = (iy * WZ + zslot<S>(iz, T::HALF)) * CS + c0;
+          dst[i] = (iy * WZ + iz) * CS + c0;
           live[i] = gy >= 0 && gy < Y && gz >= 0 && gz < Z && c0 < cin;
           if (live[i]) {
             const __nv_bfloat16* src = xp + ((size_t)gy * Z + gz) * cin + c0;
@@ -202,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
     for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
       for (int dz = 0; dz < 3; ++dz) {
-        const uint32_t tap = (uint32_t)(dy * WZ + dz_slot<S>(dz, T::HALF)) * CS2;
+        const uint32_t tap = (uint32_t)(dy * WZ + dz) * CS2;
         for (int kc = 0; kc < KC; ++kc) {
           uint4 b[NB];
 #pragma unroll
@@ -246,8 +235,8 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int zo = zo0 + (f & 1) * 16 + g + 8 * h;
-      if (yo < Yo && zo < Zo) {
-        OutT* dst = y + ((((size_t)n * Xo + xo) * Yo + yo) * Zo + zo) * COUT + 2 * t;
+      if (yo < Y && zo < Z) {
+        OutT* dst = y + ((((size_t)n * X + xo) * Y + yo) * Z + zo) * ldy + 2 * t;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const float v0 = acc[f][j][2 * h] + bv[j][0];
@@ -288,34 +277,34 @@ __global__ void __launch_bounds__(kThreads, 4)  // 4 blocks per SM: at most 128 
   }
 }
 
-template <int S, int COUT, typename OutT>
+template <int COUT, typename OutT>
 int launch_rowconv(const void* x, const void* norm, const void* w, const void* bias, void* y,
-                   void* sums, int N, int X, int Y, int Z, int cin, int cin_k, cudaStream_t st) {
-  using T = Tile<S, COUT>;
-  const int Xo = (X - 1) / S + 1, Yo = (Y - 1) / S + 1, Zo = (Z - 1) / S + 1;
+                   void* sums, int N, int X, int Y, int Z, int cin, int cin_k, int ldy,
+                   cudaStream_t st) {
+  using T = Tile<COUT>;
   const size_t bytes = (size_t)4 * cin_k * 4 + (size_t)kWarps * 2 * COUT * 4 +
                        (size_t)T::WY * T::WZ * (cin_k + 8) * 2;
-  auto kern = rowconv_kernel<S, COUT, OutT>;
+  auto kern = rowconv_kernel<COUT, OutT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int nzb = (Zo + kTZ - 1) / kTZ, nyb = (Yo + T::TY - 1) / T::TY;
-  dim3 grid(nzb * nyb, Xo, N);
+  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + T::TY - 1) / T::TY;
+  dim3 grid(nzb * nyb, X, N);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norm),
       static_cast<const uint4*>(w), static_cast<const float*>(bias), static_cast<OutT*>(y),
-      static_cast<float*>(sums), X, Y, Z, cin, cin_k, Xo, Yo, Zo);
+      static_cast<float*>(sums), X, Y, Z, cin, cin_k, ldy);
   return (int)cudaGetLastError();
 }
 
-template <int S, typename OutT>
+template <typename OutT>
 int dispatch_cout(const void* x, const void* norm, const void* w, const void* bias, void* y,
-                  void* sums, int N, int X, int Y, int Z, int cin, int cin_k, int cout,
+                  void* sums, int N, int X, int Y, int Z, int cin, int cin_k, int cout, int ldy,
                   cudaStream_t st) {
   switch (cout) {
-    case 16: return launch_rowconv<S, 16, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, st);
-    case 32: return launch_rowconv<S, 32, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, st);
-    case 64: return launch_rowconv<S, 64, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, st);
+    case 16: return launch_rowconv<16, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, ldy, st);
+    case 32: return launch_rowconv<32, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, ldy, st);
+    case 64: return launch_rowconv<64, OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, ldy, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -331,21 +320,18 @@ int dispatch_cout(const void* x, const void* norm, const void* w, const void* bi
 //         p < cout/16, lane = 4g + t, the 16 bytes at index
 //         ((tap*(cin_k/16) + kc)*(cout/16) + p)*32 + lane hold the bf16
 //         values w[tap, kc*16 + 8h + 2t + e, p*16 + 8q + g] in (q, h, e) order
-//   bias  (cout,) float32;  y (N, Xo, Yo, Zo, cout);  sums (N, 2, cout) float32,
-//         zeroed by the caller; cout one of 16/32/64; stride 1 or 2
+//   bias  (cout,) float32;  sums (N, 2, cout) float32, zeroed by the caller
+//   y     output voxel (n, x, y, z) at element ((n*X + x)*Y + y)*Z + z times
+//         ldy, its cout channels contiguous (ldy >= cout, even); cout one of
+//         16/32/64
 extern "C" int boa_rowconv_fwd(const void* x, const void* norm, const void* w, const void* bias,
                                void* y, void* sums, int N, int X, int Y, int Z, int cin,
-                               int cin_k, int cout, int stride, int out_f32, void* stream) {
-  if (cin < 1 || cin_k % 16 != 0 || cin_k < cin || cin_k >= cin + 16)
+                               int cin_k, int cout, int ldy, int out_f32, void* stream) {
+  if (cin < 1 || cin_k % 16 != 0 || cin_k < cin || cin_k >= cin + 16 || ldy < cout || ldy % 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    return out_f32 ? dispatch_cout<1, float>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, cout, st)
-                   : dispatch_cout<1, __nv_bfloat16>(x, norm, w, bias, y, sums, N, X, Y, Z, cin,
-                                                     cin_k, cout, st);
-  if (stride == 2)
-    return out_f32 ? dispatch_cout<2, float>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, cout, st)
-                   : dispatch_cout<2, __nv_bfloat16>(x, norm, w, bias, y, sums, N, X, Y, Z, cin,
-                                                     cin_k, cout, st);
-  return (int)cudaErrorInvalidValue;
+  return out_f32 ? dispatch_cout<float>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k, cout,
+                                        ldy, st)
+                 : dispatch_cout<__nv_bfloat16>(x, norm, w, bias, y, sums, N, X, Y, Z, cin, cin_k,
+                                                cout, ldy, st);
 }

@@ -12,9 +12,9 @@ PyTorch version beside it (same contract, same bf16 rounding points); a CUDA
 tensor launches the hand-written CUDA kernel of `csrc/` or raises. Each
 launch adds one to `LAUNCHES[name]`.
 
-  conv3d_rows          csrc/rowconv.cu, stride 1  (K1 and K4)
-  conv3d_rows_stride2  csrc/rowconv.cu, stride 2  (K2)
-  transpconv2_rows     csrc/transpconv.cu         (K3)
+  conv3d_rows          csrc/rowconv.cu      (K1 and K4)
+  conv3d_rows_stride2  csrc/stride2conv.cu  (K2)
+  transpconv2_rows     csrc/transpconv.cu   (K3)
 
 Weights are packed for their kernel by `pack_conv` / `pack_transp` into a
 `Packed` (B fragments plus the fp32 bias); a caller that runs a layer many
@@ -120,8 +120,9 @@ def unpack_conv(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
 @torch.no_grad()
 def pack_transp(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
     """A 2x2x2 transposed conv (w (2, 2, 2, cin, cout) with taps (a, b, c)
-    along (x, y, z), b (cout,) or None) packed for `transpconv2_rows`: a
-    (4, cin_p, 2*cout_p) matrix per (a, b) pair with columns (c, co)."""
+    along (x, y, z), b (cout,) or None) packed for `transpconv2_rows`: per
+    (a, b) pair a (cin_p, 2*cout_p) matrix with columns (c, co), as B
+    fragments (see `_fragments`)."""
     if w.dim() != 5 or tuple(w.shape[:3]) != (2, 2, 2):
         raise ValueError(f"pack_transp: weight {tuple(w.shape)} is not 2x2x2")
     cin, cout = int(w.shape[3]), int(w.shape[4])
@@ -130,14 +131,15 @@ def pack_transp(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
         raise ValueError(f"pack_transp: cout {cout} > {_TRANSP_COUT[-1]}")
     cin_p = _round_up(cin, 16)
     wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, cin_p - cin))
-    wk = wq.permute(0, 1, 3, 2, 4).reshape(4, cin_p, 2 * cout_p).contiguous()
-    return Packed(wk, _padded_bias(b, cout, cout_p, w.device), cin, cout)
+    wk = wq.permute(0, 1, 3, 2, 4).reshape(4, cin_p, 2 * cout_p)
+    return Packed(_fragments(wk), _padded_bias(b, cout, cout_p, w.device), cin, cout)
 
 
 def unpack_transp(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
     """(w (2, 2, 2, cin, cout) float32, b (cout,) float32) of a `Packed`."""
     cin_p, cout_p = _round_up(p.cin, 16), p.bias.numel()
-    w = p.w.reshape(2, 2, cin_p, 2, cout_p).permute(0, 1, 3, 2, 4).float()
+    w = _unfragments(p.w, 4, cin_p, 2 * cout_p).reshape(2, 2, cin_p, 2, cout_p)
+    w = w.permute(0, 1, 3, 2, 4).float()
     return w[..., :p.cin, :p.cout], p.bias[:p.cout]
 
 
@@ -219,10 +221,10 @@ def _out_buffer(out, shape, cout, cout_p, out_dtype, dev, align: int):
     return torch.empty(tuple(shape) + (cout_p,), dtype=out_dtype, device=dev), cout_p, out
 
 
-def _launcher(name: str, fn, args, y, back, keep) -> Callable[[], None]:
+def _launcher(name: str, fn, args, keep, back=None, y=None) -> Callable[[], None]:
     """The launch of one prepared call: the kernel, its count, and the copy
-    into `back` when the kernel could not write there itself. `keep` holds
-    the tensors whose pointers are in `args` alive as long as the launch."""
+    of `y` into `back` when the kernel could not write there itself. `keep`
+    holds the tensors whose pointers are in `args` alive with the launch."""
     from boa_tpu_torch import _build
 
     def launch() -> None:
@@ -252,6 +254,18 @@ def _packed(name, x, w, b, w_packed, taps, pack):
     return w_packed
 
 
+def _strided_input(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(x, voxel stride) as the stride-2 kernel reads it: 16-byte aligned,
+    channels and voxel stride multiples of 8. A channel slice of the concat
+    qualifies as it is; anything else is copied (and zero-padded to 8
+    channels) first."""
+    ld = _voxel_stride(x)
+    if ld is not None and x.shape[-1] % 8 == 0 and ld % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x, ld
+    cin8 = _round_up(x.shape[-1], 8)
+    return F.pad(x, (0, cin8 - x.shape[-1])).contiguous(), cin8
+
+
 def _conv_call(name, stride, x, norm, w, b, *, slope=1.0,
                out_dtype=torch.bfloat16, w_packed=None, out=None):
     from boa_tpu_torch import _build
@@ -261,20 +275,31 @@ def _conv_call(name, stride, x, norm, w, b, *, slope=1.0,
     p = _packed(name, x, w, b, w_packed, 3, pack_conv)
     cout, cout_p = p.cout, p.bias.numel()
     n, X, Y, Z, cin = x.shape
-    x = x.contiguous()
-    cin_k = _round_up(cin, 16)   # the kernel zero-fills channels past cin
+    cin_k = _round_up(cin, 16)   # channels past cin have scale 0: act 0
     rows = _norm_rows(norm, slope, n, cin, cin_k, dev)
-    Xo, Yo, Zo = ((v - 1) // stride + 1 for v in (X, Y, Z))
-    y, ldy, back = _out_buffer(out, (n, Xo, Yo, Zo), cout, cout_p, out_dtype,
-                               dev, 4)
-    back = out
-    y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
     sums = torch.zeros((n, 2, cout_p), dtype=torch.float32, device=dev)
-    args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
-            y.data_ptr(), sums.data_ptr(), n, X, Y, Z, cin, cin_k, cout_p,
-            stride, _out_f32(out_dtype), _stream())
-    launch = _launcher(name, _build.lib("rowconv").boa_rowconv_fwd, args,
-                       y[..., :cout], back, (x, rows, p, y, sums))
+    if stride == 1:
+        x = x.contiguous()
+        es = torch.finfo(out_dtype).bits // 8
+        y, ldy, back = _out_buffer(out, (n, X, Y, Z), cout, cout_p, out_dtype,
+                                   dev, 2 * es)
+        args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
+                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, cin, cin_k, cout_p,
+                ldy, _out_f32(out_dtype), _stream())
+        fn = _build.lib("rowconv").boa_rowconv_fwd
+    else:
+        if cin_k > 64:
+            raise ValueError(f"{name}: cin {cin} > 64")
+        xs, ldx = _strided_input(x)
+        Xo, Yo, Zo = ((v + 1) // 2 for v in (X, Y, Z))
+        y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
+        back = None
+        args = (xs.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
+                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, xs.shape[-1], cin_k,
+                ldx, cout_p, _out_f32(out_dtype), _stream())
+        fn = _build.lib("stride2conv").boa_stride2conv_fwd
+        x = xs
+    launch = _launcher(name, fn, args, (x, rows, p, y, sums), back, y[..., :cout])
     return launch, (y[..., :cout] if back is None else back, sums[..., :cout])
 
 
@@ -289,24 +314,18 @@ def _transp_call(x, w, b=None, *, out_dtype=torch.bfloat16, w_packed=None,
     cout, cout_p = p.cout, p.bias.numel()
     n, X, Y, Z, cin = x.shape
     cin_p = _round_up(cin, 16)
+    if cin_p > 128:
+        raise ValueError(f"{name}: cin {cin} > 128")
     if cin_p != cin:
         x = F.pad(x, (0, cin_p - cin))
     x = x.contiguous()
-    y = torch.empty((n, 2 * X, 2 * Y, 2 * Z, cout_p), dtype=out_dtype, device=dev)
-    args = (x.data_ptr(), p.w.data_ptr(), y.data_ptr(), n, X, Y, Z, cin_p,
-            cout_p, _out_f32(out_dtype), _stream())
-    fn = _build.lib("transpconv").boa_transpconv2_fwd
-    yb, bias = y[..., :cout], p.bias[:cout].to(out_dtype)
-
-    def launch() -> None:
-        assert p is not None and x is not None
-        _build.check(fn(*args), name)
-        LAUNCHES[name] += 1
-        if b is not None or w_packed is not None:
-            yb.add_(bias)
-        if out is not None:
-            out.copy_(yb)
-    return launch, (yb if out is None else out)
+    y, ldy, back = _out_buffer(out, (n, 2 * X, 2 * Y, 2 * Z), cout, cout_p,
+                               out_dtype, dev, 16)
+    args = (x.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(), y.data_ptr(), n, X,
+            Y, Z, cin_p, cout_p, ldy, _out_f32(out_dtype), _stream())
+    launch = _launcher(name, _build.lib("transpconv").boa_transpconv2_fwd, args,
+                       (x, p, y), back, y[..., :cout])
+    return launch, (y[..., :cout] if back is None else back)
 
 
 def _run(call):

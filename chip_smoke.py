@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (boa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--phases=kernels,forward,fused,study]
 
 Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 
@@ -9,8 +9,13 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 2. kernels  - every kernel of the main path against its plain PyTorch version
               at the shapes a 128^3 total_fast tile gives it (bf16 outputs
               at rtol = atol = 2e-2, per-channel sums within 1e-2 of the
-              largest sum of squares), with CUDA-event times of the kernel,
-              the plain version and the closest single PyTorch library call
+              largest sum of squares). K2 reads and K3 (with its bias) writes
+              a channel slice of the (1, 128, 128, 128, 64) decoder concat,
+              as the main path runs them; the channels K3 does not own must
+              keep their bits. CUDA-event times of the kernel's launch alone
+              (`kernel_ms`: weights packed and buffers allocated beforehand),
+              the public wrapper (`wrapper_ms`), the plain version and the
+              closest single PyTorch library call
 3. forward  - the full-width total_fast U-Net on one 128^3 tile: the kernel
               composite against the same composite on the plain versions
               (argmax agreement > 0.99), and the time per tile
@@ -29,8 +34,9 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               no K5 launch
 
 With --profile, the fused and study phases each add one more run under
-torch.profiler (device busy share, kernels by device time). Each phase
-prints one JSON line. Then come the kernel summary line
+torch.profiler (device busy share, kernels by device time). --phases= runs
+only the phases named (after the device phase) and prints no summary. Each
+phase prints one JSON line. Then come the kernel summary line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -60,7 +66,7 @@ REPLACES = {
 }
 SOURCES = {
     "conv3d_rows": "boa_tpu_torch/csrc/rowconv.cu",
-    "conv3d_rows_stride2": "boa_tpu_torch/csrc/rowconv.cu",
+    "conv3d_rows_stride2": "boa_tpu_torch/csrc/stride2conv.cu",
     "transpconv2_rows": "boa_tpu_torch/csrc/transpconv.cu",
     "conv3d_in_act": "boa_tpu_torch/csrc/conv_in_act.cu",
 }

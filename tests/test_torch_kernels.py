@@ -97,6 +97,129 @@ def test_transp_kernel_matches_plain(cuda, shape, cin, cout, out_f32):
     torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("cout", [16, 32, 64])
+@pytest.mark.parametrize("shape,cin,strided", [
+    ((2, 9, 7, 11), 32, False),
+    ((2, 9, 7, 11), 32, True),
+    ((1, 20, 17, 35), 16, True),
+    ((1, 5, 3, 40), 64, False),
+    ((2, 6, 9, 5), 24, True),
+])
+def test_stride2_kernel_matches_plain(cuda, shape, cin, strided, cout):
+    """K2 (csrc/stride2conv.cu) at extents that fill no whole tile, on a
+    whole tensor and on a channel slice of a wider buffer (the concat)."""
+    rng = np.random.default_rng(cin + cout + shape[1])
+    n = shape[0]
+    x = torch.tensor(rng.normal(size=shape + (cin,)) * 2 + 0.3, dtype=torch.bfloat16,
+                     device=cuda)
+    if strided:
+        buf = torch.tensor(rng.normal(size=shape + (cin + 16,)), dtype=torch.bfloat16,
+                           device=cuda)
+        buf[..., 16:] = x
+        x = buf[..., 16:]
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) * 0.2, dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.float32, device=cuda)
+    norm = _norm(rng, n, cin, cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = rc.LAUNCHES["conv3d_rows_stride2"]
+        y, s = rc.conv3d_rows_stride2(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES["conv3d_rows_stride2"] == before + 1
+        yr, sr = rc.conv3d_rows_stride2_plain(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        assert y.shape == yr.shape == (n,) + tuple((v + 1) // 2 for v in shape[1:]) + (cout,)
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+        assert _rel_sums(s, sr) < 1e-2
+
+
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("cout", [8, 16, 32, 64])
+def test_transp_kernel_into_a_concat_slice(cuda, cout, out_f32):
+    """K3 with its bias into the first cout channels of a wider buffer: the
+    slice matches the plain version, the other channels keep their bits."""
+    rng = np.random.default_rng(cout)
+    n, X, Y, Z, cin = 2, 5, 6, 9, 48
+    x = torch.tensor(rng.normal(size=(n, X, Y, Z, cin)), dtype=torch.bfloat16, device=cuda)
+    w = torch.tensor(rng.normal(size=(2, 2, 2, cin, cout)) * 0.2, dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=cout), dtype=torch.float32, device=cuda)
+    out_dtype = torch.float32 if out_f32 else torch.bfloat16
+    buf = torch.tensor(rng.normal(size=(n, 2 * X, 2 * Y, 2 * Z, cout + 24)), dtype=out_dtype,
+                       device=cuda)
+    rest = buf[..., cout:].clone()
+    before = rc.LAUNCHES["transpconv2_rows"]
+    got = rc.transpconv2_rows(x, w, b, out_dtype=out_dtype, out=buf[..., :cout])
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["transpconv2_rows"] == before + 1
+    assert got.data_ptr() == buf.data_ptr()
+    yr = rc.transpconv2_rows_plain(x, w, b, out_dtype=out_dtype)
+    torch.testing.assert_close(buf[..., :cout].float(), yr.float(), rtol=2e-2, atol=2e-2)
+    bits = torch.int32 if out_f32 else torch.int16
+    assert torch.equal(buf[..., cout:].contiguous().view(bits), rest.view(bits))
+
+
+def test_conv_kernel_into_a_concat_slice(cuda):
+    """K1 writes its output into the last channels of the concat."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(1, 7, 9, 20, 16)), dtype=torch.bfloat16, device=cuda)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, 16, 32)) * 0.2, dtype=torch.float32,
+                     device=cuda)
+    norm = _norm(rng, 1, 16, cuda)
+    cat = torch.full((1, 7, 9, 20, 64), 3.0, dtype=torch.bfloat16, device=cuda)
+    y, s = rc.conv3d_rows(x, norm, w, None, slope=0.01, out=cat[..., 32:])
+    torch.cuda.synchronize()
+    yr, sr = rc.conv3d_rows_plain(x, norm, w, None, slope=0.01)
+    assert y.data_ptr() == cat[..., 32:].data_ptr()
+    torch.testing.assert_close(cat[..., 32:].float(), yr.float(), rtol=2e-2, atol=2e-2)
+    assert bool((cat[..., :32] == 3.0).all()) and _rel_sums(s, sr) < 1e-2
+
+
+def test_cuda_tensors_never_take_the_plain_route(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("conv3d_rows_plain", "conv3d_rows_stride2_plain",
+                 "transpconv2_rows_plain", "_plain_conv", "_conv_plain"):
+        monkeypatch.setattr(rc, name, refuse)
+    x = torch.randn(1, 6, 5, 7, 32, device=cuda).to(torch.bfloat16)
+    w3 = torch.randn(3, 3, 3, 32, 64, device=cuda) * 0.1
+    w2 = torch.randn(2, 2, 2, 32, 16, device=cuda) * 0.1
+    before = dict(rc.LAUNCHES)
+    y, _ = rc.conv3d_rows_stride2(x, rc.identity_normact(32, cuda), w3, None)
+    up = rc.transpconv2_rows(x, w2, torch.zeros(16, device=cuda))
+    packed = rc.pack_transp(w2, None)
+    up2 = rc.transpconv2_rows(x, None, w_packed=packed)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["conv3d_rows_stride2"] == before["conv3d_rows_stride2"] + 1
+    assert rc.LAUNCHES["transpconv2_rows"] == before["transpconv2_rows"] + 2
+    assert y.shape == (1, 3, 3, 4, 64) and torch.equal(up, up2)
+    with pytest.raises(ValueError):
+        rc.conv3d_rows_stride2(torch.zeros(1, 4, 4, 4, 80, device=cuda, dtype=torch.bfloat16),
+                               rc.identity_normact(80, cuda),
+                               torch.zeros(3, 3, 3, 80, 16, device=cuda), None)
+
+
+def test_composite_forward_on_the_kernels_matches_plain(cuda):
+    """The composite forward (decoder concat built in place) on the kernels
+    against the same forward on the plain versions, at a small width."""
+    from boa_tpu_torch.models.unet import ArchConfig, PlainConvUNet, cast_model
+
+    cfg = ArchConfig(n_stages=3, features_per_stage=(16, 32, 64),
+                     kernel_sizes=((3, 3, 3),) * 3, strides=((1, 1, 1),) + ((2, 2, 2),) * 2,
+                     n_conv_per_stage=(2, 2, 2), n_conv_per_stage_decoder=(2, 2), num_classes=5)
+    torch.manual_seed(0)
+    model = cast_model(PlainConvUNet(cfg, device=cuda).eval(), torch.bfloat16)
+    x = torch.randn(2, 24, 20, 32, 1, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        rc.reset_launches()
+        got = model(x, rc.KERNELS).float()
+        assert dict(rc.LAUNCHES) == {"conv3d_rows": 4, "conv3d_rows_stride2": 1,
+                                     "transpconv2_rows": 1}
+        ref = model(x, rc.PLAIN).float()
+    assert got.shape == (2, 24, 20, 32, 5) and bool(torch.isfinite(got).all())
+    assert float((got.argmax(-1) == ref.argmax(-1)).float().mean()) > 0.99
+
+
 def test_main_path_shapes(cuda):
     """The 128^3 shapes of a total_fast tile, including a batch of two."""
     rng = np.random.default_rng(2)

@@ -103,6 +103,34 @@ def test_composite_is_chosen_by_dtype_and_geometry():
     assert calls == [] and sum(rc.LAUNCHES.values()) == 0
 
 
+def test_composite_packs_weights_once_and_again_after_an_update():
+    """The composite caches its packed weights on the model: equal to packing
+    per call, reused while the parameters stay, packed again after an
+    in-place update."""
+    from boa_tpu_torch.models.unet import _row_packs, _wcl
+    from boa_tpu_torch.ops import rowconv as rc
+
+    model = PlainConvUNet(ArchConfig(**_ARCHS["plain4"]), device="cpu").to(torch.bfloat16)
+    packs = _row_packs(model)
+    assert _row_packs(model) is packs
+    conv = model.encoder[1][0].conv
+    fresh = rc.pack_conv(_wcl(conv), conv.bias)
+    assert torch.equal(packs.down.w, fresh.w) and torch.equal(packs.down.bias, fresh.bias)
+    up = rc.pack_transp(model.decoder[-1].transp.weight.permute(2, 3, 4, 0, 1),
+                        model.decoder[-1].transp.bias)
+    assert torch.equal(packs.up.w, up.w) and torch.equal(packs.up.bias, up.bias)
+    with torch.no_grad():
+        conv.weight.add_(1.0)
+    again = _row_packs(model)
+    assert again is not packs
+    fresh = rc.pack_conv(_wcl(conv), conv.bias)
+    assert torch.equal(again.down.w, fresh.w) and not torch.equal(again.down.w, packs.down.w)
+    x = torch.randn(1, 16, 24, 8, 1).to(torch.bfloat16)
+    with torch.no_grad():
+        model(x)
+    assert _row_packs(model) is again
+
+
 def test_loaders_give_identical_parameters(tmp_path):
     mdir = jstore.create_synthetic_model(tmp_path, 298, "t", num_classes=4,
                                          patch_size=(16, 16, 16),
