@@ -22,28 +22,28 @@
 // stages each input voxel once and overlaps its load with the products:
 //
 // A block of 4 warps owns an 8 (y) x 16 (z) output tile (4 x 16 at cin 64)
-// and walks a column
-// of TX consecutive output x planes. Output plane xo reads input planes
-// 2xo - 1, 2xo, 2xo + 1, and plane 2xo + 1 opens plane xo + 1 as well, so
-// the block stages 2 * TX + 1 input planes, each once: the odd plane stays
-// in shared memory across the epilogue of xo. Each plane's haloed window
-// (17 y x 33 z voxels) lands raw through cp.async (16 bytes, L2 only)
-// straight into its place in one of two plane buffers, while the previous
-// plane is normalized and multiplied out of the other. The layout is the
-// one `ldmatrix` reads conflict-free: channels innermost with a voxel stride
-// of cin + 8, z slots even-first, odd-second, so that the 16 stride-2 rows
-// of an A fragment are 16 consecutive slots. Norm + act then run in place,
-// once per staged value, in fp32; each thread stages one fixed 8-channel
-// chunk, whose norm rows it keeps in registers, so the staging loops read
-// no norm rows and carry no divisions by the channel count. Each
+// and walks a column of tx consecutive output x planes. Output plane xo
+// reads input planes 2xo - 1, 2xo, 2xo + 1, and plane 2xo + 1 opens plane
+// xo + 1 as well, so the block stages 2 * tx + 1 input planes, each once:
+// the odd plane stays in shared memory across the epilogue of xo. Each
+// plane's haloed window (17 y x 33 z voxels) lands raw through cp.async
+// (16 bytes, L2 only) straight into its place in one of two plane buffers,
+// while the previous plane is normalized and multiplied out of the other.
+// The layout is the one `ldmatrix` reads conflict-free: channels innermost
+// with a voxel stride of cin + 8, z slots even-first, odd-second, so that
+// the 16 stride-2 rows of an A fragment are 16 consecutive slots. Norm + act
+// then run in place, once per staged value, in fp32; each thread stages one
+// fixed 8-channel chunk and keeps its norm rows in registers, so the staging
+// loops read no norm rows and carry no divisions by the channel count. Each
 // warp holds two A fragments (two output y rows x 16 z) against all cout
 // columns and multiplies with `mma.sync` m16n8k16; B fragments are packed by
 // the wrapper in per-lane register order and read with coalesced 16-byte
-// loads. Two blocks share an SM, so one block's staging overlaps the
-// other's products. The epilogue of each output plane adds the fp32 bias,
-// rounds, and writes y through a small per-warp staging buffer in whole
-// 16-byte pieces; the per-channel sums stay in registers over the column and
-// leave with one atomicAdd per channel and block.
+// loads, one k step ahead. Two blocks share an SM, so one block's staging
+// overlaps the other's products. The epilogue of each output plane adds the
+// fp32 bias, rounds, and writes y through a small per-warp staging buffer
+// in whole 16-byte pieces; the per-channel sums stay in registers over the
+// column and leave with one atomicAdd per channel and block. The column
+// length tx is chosen at launch from the waves of blocks it gives.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +69,7 @@ constexpr int kWZ = 2 * kTZ + 1;      // window z voxels
 constexpr int kHalf = (kWZ + 1) / 2;  // even z slots come first
 
 // Tile geometry for CIN (padded) input channels: two plane buffers must fit
-// the 227 KB of shared memory a block can have.
+// the 227 KB of shared memory a block can have (at cin 64 one block per SM).
 template <int CIN>
 struct Geo {
   static constexpr int MW = CIN <= 32 ? 2 : 1;  // A fragments per warp: output y rows
@@ -112,8 +112,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int VEC = COUT * (int)sizeof(OutT) / 16;  // 16-byte stores per output voxel
   float* red = reinterpret_cast<float*>(smem);        // (kWarps, 2, COUT)
   unsigned char* ostage = smem + kWarps * 2 * COUT * 4;  // (kWarps, 16, RS)
-  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(ostage + kWarps * 16 * RS);  // (2, WY, kWZ slots, CS)
-  constexpr int kPlane = VOX * CS;  // elements per plane buffer
+  // two plane buffers of (WY, kWZ slots, CS), kPlane elements each
+  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(ostage + kWarps * 16 * RS);
+  constexpr int kPlane = VOX * CS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = blockIdx.z;

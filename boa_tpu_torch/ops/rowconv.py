@@ -223,16 +223,16 @@ def _out_buffer(out, shape, cout, cout_p, out_dtype, dev, align: int):
 
 def _launcher(name: str, fn, args, keep, back=None, y=None) -> Callable[[], None]:
     """The launch of one prepared call: the kernel, its count, and the copy
-    of `y` into `back` when the kernel could not write there itself. `keep`
-    holds the tensors whose pointers are in `args` alive with the launch."""
+    of `y` into `back` when the kernel could not write there itself. The
+    launch holds `keep`, the tensors whose pointers are in `args`."""
     from boa_tpu_torch import _build
 
     def launch() -> None:
-        assert keep is not None
         _build.check(fn(*args), name)
         LAUNCHES[name] += 1
         if back is not None:
             back.copy_(y)
+    launch.tensors = keep
     return launch
 
 
@@ -290,15 +290,14 @@ def _conv_call(name, stride, x, norm, w, b, *, slope=1.0,
     else:
         if cin_k > 64:
             raise ValueError(f"{name}: cin {cin} > 64")
-        xs, ldx = _strided_input(x)
+        x, ldx = _strided_input(x)
         Xo, Yo, Zo = ((v + 1) // 2 for v in (X, Y, Z))
         y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
         back = None
-        args = (xs.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
-                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, xs.shape[-1], cin_k,
+        args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
+                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, x.shape[-1], cin_k,
                 ldx, cout_p, _out_f32(out_dtype), _stream())
         fn = _build.lib("stride2conv").boa_stride2conv_fwd
-        x = xs
     launch = _launcher(name, fn, args, (x, rows, p, y, sums), back, y[..., :cout])
     return launch, (y[..., :cout] if back is None else back, sums[..., :cout])
 
@@ -316,9 +315,7 @@ def _transp_call(x, w, b=None, *, out_dtype=torch.bfloat16, w_packed=None,
     cin_p = _round_up(cin, 16)
     if cin_p > 128:
         raise ValueError(f"{name}: cin {cin} > 128")
-    if cin_p != cin:
-        x = F.pad(x, (0, cin_p - cin))
-    x = x.contiguous()
+    x = F.pad(x, (0, cin_p - cin)) if cin_p != cin else x.contiguous()
     y, ldy, back = _out_buffer(out, (n, 2 * X, 2 * Y, 2 * Z), cout, cout_p,
                                out_dtype, dev, 16)
     args = (x.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(), y.data_ptr(), n, X,

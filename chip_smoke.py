@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (boa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--phases=kernels,forward,fused,study]
+    python3 chip_smoke.py [--profile]
 
 Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 
@@ -21,11 +21,13 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               (argmax agreement > 0.99), and the time per tile
 4. fused    - the wide-channel conv kernel (K5) against its plain version at
               each of the 17 convs of the fused forward (same bars and
-              timings as phase 2), then the full-width fused forward on the
-              same tile and model as phase 3: argmax agreement > 0.99 with
-              the same forward on the plain K5 and > 0.98 with the eager
-              forward, exactly 17 K5 launches, and its time per tile beside
-              the composite's and the eager forward's
+              timings as phase 2; `kernel_ms` is the call with the weights
+              packed beforehand, as the fused forward makes it), then the
+              full-width fused forward on the same tile and model as phase
+              3: argmax agreement > 0.99 with the same forward on the plain
+              K5 and > 0.98 with the eager forward, exactly 17 K5 launches,
+              and its time per tile beside the composite's and the eager
+              forward's
 5. study    - a small study through predict_image on the card against the
               same call on the CPU (labels agree > 0.99), then the
               512x512x300 fast-total study (one warm-up, three timed runs)
@@ -34,9 +36,8 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               no K5 launch
 
 With --profile, the fused and study phases each add one more run under
-torch.profiler (device busy share, kernels by device time). --phases= runs
-only the phases named (after the device phase) and prints no summary. Each
-phase prints one JSON line. Then come the kernel summary line
+torch.profiler (device busy share, kernels by device time). Each phase
+prints one JSON line. Then come the kernel summary line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -57,7 +58,6 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
-PHASES = ("kernels", "forward", "fused", "study")
 REPLACES = {
     "conv3d_rows": "boa_tpu/ops/rowconv.py:78, boa_tpu/ops/rowconv.py:334",
     "conv3d_rows_stride2": "boa_tpu/ops/rowconv.py:426",
@@ -337,6 +337,7 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
         wp = pc.pack_in_act_weights(w)
         kern = lambda: pc.conv3d_in_act(x, norm, None, b, slope=slope,  # noqa: E731
                                         w_packed=wp, cin=cin, cout=cout)
+        wrapper = lambda: pc.conv3d_in_act(x, norm, w, b, slope=slope)  # noqa: E731
         plain = lambda: pc.conv3d_in_act_plain(x, norm, w, b, slope=slope)  # noqa: E731
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         lib = lambda: F.conv3d(x[None].permute(0, 4, 1, 2, 3), wt, b, padding=1)  # noqa: E731
@@ -354,6 +355,7 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
                       "pending_norm": pending, "max_abs_err": err,
                       "rel_err_sums": rel_sums,
                       "kernel_ms": time_ms(torch, kern, 10),
+                      "wrapper_ms": time_ms(torch, wrapper, 10),
                       "plain_ms": time_ms(torch, plain, 3),
                       "library_ms": time_ms(torch, lib, 10),
                       "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ok": ok})
@@ -557,24 +559,12 @@ def main() -> int:
     from boa_tpu_torch.ops import rowconv as rc
 
     resolve_device("cuda")  # pins the float32 precision flags
-    phases = PHASES
-    for arg in sys.argv[1:]:
-        if arg.startswith("--phases="):
-            phases = tuple(arg.split("=", 1)[1].split(","))
     profile_run = "--profile" in sys.argv[1:]
     phase_device(torch, _build)
-    cases = phase_kernels(torch, rc) if "kernels" in phases else None
-    if "forward" in phases:
-        phase_forward(torch, rc)
-    if "fused" in phases:
-        fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
-    if "study" in phases:
-        study = phase_study(torch, rc, pc, profile_run)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
-    if phases != PHASES:   # a partial run: no summary
-        emit({"ok": True, "phases": list(phases), "device": device})
-        return 0
+    cases = phase_kernels(torch, rc)
+    phase_forward(torch, rc)
+    fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
+    study = phase_study(torch, rc, pc, profile_run)
 
     summary = []
     for name in REPLACES:
@@ -591,7 +581,9 @@ def main() -> int:
         summary.append(_row(name, mine, [c for c in cases if c["name"] == name],
                             study["launches"][name]))
     emit({"kernels": summary})
-    emit({"ok": True, "device": device})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 
