@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   // raw window of input plane gx into `buf`: one 16-byte cp.async per live
   // (voxel, chunk)
-  auto issue = [&](int gx, __nv_bfloat16* buf) {
+  auto fetch = [&](int gx, __nv_bfloat16* buf) {
     const __nv_bfloat16* xp = x + ((size_t)n * X + gx) * Y * Z * ldx + ch;
     if (ch >= cin) return;
     for (int v = v0; v < VOX; v += VSTEP) {
@@ -251,14 +251,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int gx = 2 * xo0 - 1 + k;
     return gx >= 0 && gx < X;
   };
-  if (live_plane(0)) issue(2 * xo0 - 1, planes);
+  if (live_plane(0)) fetch(2 * xo0 - 1, planes);
   cp_async_commit();
 
   for (int k = 0; k < nplanes; ++k) {
     const bool live = live_plane(k);
     __nv_bfloat16* buf = planes + (k & 1) * kPlane;
     __syncthreads();  // plane k - 1's products are done: its buffer is free
-    if (k + 1 < nplanes && live_plane(k + 1)) issue(2 * xo0 + k, planes + ((k + 1) & 1) * kPlane);
+    if (k + 1 < nplanes && live_plane(k + 1)) fetch(2 * xo0 + k, planes + ((k + 1) & 1) * kPlane);
     cp_async_commit();
     cp_async_wait<1>();  // plane k landed (plane k + 1 may still be in flight)
     __syncthreads();
