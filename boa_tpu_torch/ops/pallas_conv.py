@@ -189,7 +189,16 @@ def conv3d_in_act_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     return y[0], sums[0]
 
 
-def _in_act_kernel(x, norm, w, b, slope, out_dtype, w_packed, cin, cout):
+def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
+                   b: torch.Tensor | None, *, slope: float = 1.0,
+                   out_dtype=torch.bfloat16,
+                   w_packed: torch.Tensor | None = None,
+                   cin: int | None = None, cout: int | None = None):
+    """(launch, (y, sums)) of `conv3d_in_act` on CUDA tensors, with the same
+    arguments: the weight packing (unless `w_packed` is given), the padded
+    bias, the norm rows and the output buffers are made here, once;
+    `launch()` zeroes `sums`, runs the kernel alone (and counts it) and fills
+    `(y, sums)`, which the wrapper would return."""
     from boa_tpu_torch import _build
 
     cin, cout = _shapes(x, w, w_packed, cin, cout)
@@ -208,16 +217,18 @@ def _in_act_kernel(x, norm, w, b, slope, out_dtype, w_packed, cin, cout):
     bias[:cout] = _bias(b, cout, dev)
     rows = _norm_rows(norm, slope, 1, cin, nch * ck, dev)
     y = torch.empty((X, Y, Z, cout_p), dtype=out_dtype, device=dev)
-    sums = torch.zeros((2, cout_p), dtype=torch.float32, device=dev)
-    err = _build.lib("conv_in_act").boa_conv_in_act_fwd(
-        xq.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), sums.data_ptr(), X, Y, Z, cin, ck, nch, cout_p, bn,
-        _out_f32(out_dtype), _stream())
-    _build.check(err, "conv3d_in_act")
-    LAUNCHES["conv3d_in_act"] += 1
-    if cout_p != cout:
-        y, sums = y[..., :cout], sums[:, :cout]
-    return y, sums
+    sums = torch.empty((2, cout_p), dtype=torch.float32, device=dev)
+    fn = _build.lib("conv_in_act").boa_conv_in_act_fwd
+    args = (xq.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), sums.data_ptr(), X, Y, Z, cin, ck, nch, cout_p, bn,
+            _out_f32(out_dtype), _stream())
+
+    def launch() -> None:
+        sums.zero_()
+        _build.check(fn(*args), "conv3d_in_act")
+        LAUNCHES["conv3d_in_act"] += 1
+    launch.tensors = (xq, rows, wp, bias, y, sums)
+    return launch, (y[..., :cout], sums[:, :cout])
 
 
 def conv3d_in_act(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
@@ -235,6 +246,9 @@ def conv3d_in_act(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     Pass `w_packed` (from `pack_in_act_weights`) plus cin/cout to skip the
     per-call packing. Weights are rounded to bf16 either way."""
     if _route(x):
-        return _in_act_kernel(x, norm, w, b, slope, out_dtype, w_packed, cin, cout)
+        launch, res = prepare_launch(x, norm, w, b, slope=slope, out_dtype=out_dtype,
+                                     w_packed=w_packed, cin=cin, cout=cout)
+        launch()
+        return res
     return conv3d_in_act_plain(x, norm, w, b, slope=slope, out_dtype=out_dtype,
                                w_packed=w_packed, cin=cin, cout=cout)

@@ -21,8 +21,8 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               (argmax agreement > 0.99), and the time per tile
 4. fused    - the wide-channel conv kernel (K5) against its plain version at
               each of the 17 convs of the fused forward (same bars and
-              timings as phase 2; `kernel_ms` is the call with the weights
-              packed beforehand, as the fused forward makes it), then the
+              timings as phase 2; `kernel_ms` is the launch alone,
+              `pallas_conv.prepare_launch`), then the
               full-width fused forward on the same tile and model as phase
               3: argmax agreement > 0.99 with the same forward on the plain
               K5 and > 0.98 with the eager forward, exactly 17 K5 launches,
@@ -36,7 +36,9 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               no K5 launch
 
 With --profile, the fused and study phases each add one more run under
-torch.profiler (device busy share, kernels by device time). Each phase
+torch.profiler (device busy share, kernels by device time). With
+--phases=a,b (of kernels, forward, fused, study) only those phases run after
+the device phase, and the kernel summary line is left out. Each phase
 prints one JSON line. Then come the kernel summary line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
@@ -334,14 +336,14 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
             norm, slope = norm._replace(mean=norm.mean[0], inv_std=norm.inv_std[0]), 0.01
         else:
             norm, slope = pc.identity_normact(cin, dev), 1.0
-        wp = pc.pack_in_act_weights(w)
-        kern = lambda: pc.conv3d_in_act(x, norm, None, b, slope=slope,  # noqa: E731
-                                        w_packed=wp, cin=cin, cout=cout)
+        kern, (y, sums) = pc.prepare_launch(x, norm, None, b, slope=slope,
+                                            w_packed=pc.pack_in_act_weights(w),
+                                            cin=cin, cout=cout)
         wrapper = lambda: pc.conv3d_in_act(x, norm, w, b, slope=slope)  # noqa: E731
         plain = lambda: pc.conv3d_in_act_plain(x, norm, w, b, slope=slope)  # noqa: E731
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         lib = lambda: F.conv3d(x[None].permute(0, 4, 1, 2, 3), wt, b, padding=1)  # noqa: E731
-        y, sums = kern()
+        kern()
         torch.cuda.synchronize()
         yr, sr = plain()
         err = float((y.float() - yr.float()).abs().max())
@@ -359,7 +361,7 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
                       "plain_ms": time_ms(torch, plain, 3),
                       "library_ms": time_ms(torch, lib, 10),
                       "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ok": ok})
-        del x, w, y, yr
+        del x, w, y, yr, kern
         torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -547,25 +549,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    from boa_tpu_torch import _build
-    from boa_tpu_torch.device import resolve_device
-    from boa_tpu_torch.ops import pallas_conv as pc
-    from boa_tpu_torch.ops import rowconv as rc
-
-    resolve_device("cuda")  # pins the float32 precision flags
-    profile_run = "--profile" in sys.argv[1:]
-    phase_device(torch, _build)
-    cases = phase_kernels(torch, rc)
-    phase_forward(torch, rc)
-    fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
-    study = phase_study(torch, rc, pc, profile_run)
-
+def _summary(cases, fused_cases, fused, study) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -580,7 +564,37 @@ def main() -> int:
             mine = [c for c in mine if c["layout"] == "concat"]
         summary.append(_row(name, mine, [c for c in cases if c["name"] == name],
                             study["launches"][name]))
-    emit({"kernels": summary})
+    return summary
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from boa_tpu_torch import _build
+    from boa_tpu_torch.device import resolve_device
+    from boa_tpu_torch.ops import pallas_conv as pc
+    from boa_tpu_torch.ops import rowconv as rc
+
+    resolve_device("cuda")  # pins the float32 precision flags
+    profile_run = "--profile" in sys.argv[1:]
+    phases = ("kernels", "forward", "fused", "study")
+    for arg in sys.argv[1:]:
+        if arg.startswith("--phases="):
+            phases = tuple(arg.split("=", 1)[1].split(","))
+    phase_device(torch, _build)
+    if "kernels" in phases:
+        cases = phase_kernels(torch, rc)
+    if "forward" in phases:
+        phase_forward(torch, rc)
+    if "fused" in phases:
+        fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
+    if "study" in phases:
+        study = phase_study(torch, rc, pc, profile_run)
+    if len(phases) == 4:
+        emit({"kernels": _summary(cases, fused_cases, fused, study)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
