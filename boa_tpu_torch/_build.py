@@ -106,7 +106,10 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     fn = libs["conv_in_act"].boa_conv_in_act_fwd
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = libs["conv_in_act"].boa_conv_in_act_finish
+    fn.argtypes = [p, p, p, p, i, i, i, i, p]
     fn.restype = i
 
 

@@ -42,9 +42,22 @@
 // registers and reduces sum/sum^2 with warp shuffles and shared memory
 // before one atomicAdd per channel and block. Two blocks share an SM (at
 // most 128 registers a thread), so one block's staging overlaps the other's
-// products. Not done yet (later work): split-K for the 8^3 / 4^3 calls
-// (5-20 blocks on 132 SMs), staging the next chunk while the current one
-// multiplies, weights in shared memory, wgmma + TMA.
+// products.
+//
+// Split-K. The calls at 16^3 and below have 5-64 bricks x N tiles, too few
+// blocks for 132 SMs, and each block would walk all of K alone. The grid's
+// z axis splits K: the wrapper (`ops/pallas_conv.py:_split_plan`) cuts the
+// K units (the chunks, or chunk x dx tap plane when chunks alone give too
+// few blocks, as the 4^3 call's 10 chunks do) into `splits` contiguous
+// ranges, about two blocks per SM in all. A split stages only the window
+// planes its dx range reads. With splits > 1 each split stores its raw
+// fp32 accumulators (no bias) with plain stores into its own slice of a
+// workspace (splits, X*Y*Z, cout_p), and `finish_kernel` sums the slices in
+// a fixed order, adds the bias once, rounds once, stores y and reduces the
+// sums from those fp32 values: y is bitwise the same from run to run. With
+// splits = 1 the fused epilogue above stays, with no workspace and no
+// second launch. Not done yet (later work): staging the next chunk while
+// the current one multiplies, weights in shared memory, wgmma + TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +89,10 @@ struct Brick {
   static constexpr int WY = TY + 2;             // window y rows
 };
 
-template <int BN, int CK, typename OutT>
+// SPLIT: the grid's z axis splits K and the epilogue stores raw partial
+// sums; without it the kernel walks all of K and runs the fused epilogue,
+// and compiles as if the split arguments were not there.
+template <int BN, int CK, typename OutT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 registers
     conv_in_act_kernel(const __nv_bfloat16* __restrict__ x,  // (X, Y, Z, cin)
                        const float* __restrict__ norm,       // (4, nchunks * CK)
@@ -84,14 +100,17 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
                        const float* __restrict__ bias,       // (cout_p,)
                        OutT* __restrict__ y,                 // (X, Y, Z, cout_p)
                        float* __restrict__ sums,             // (2, cout_p)
-                       int X, int Y, int Z, int cin, int nchunks, int cout_p) {
+                       float* __restrict__ ws,               // (splits, X*Y*Z, cout_p)
+                       int X, int Y, int Z, int cin, int nchunks, int cout_p, int splits,
+                       int taps) {
   using B = Brick<BN>;
   constexpr int MW = B::MW, NT = B::NT, NB = B::NB, TY = B::TY, WY = B::WY;
   constexpr int CS = CK + 8;  // window voxel stride: (CS / 8) odd keeps ldmatrix conflict-free
   constexpr int KS = CK / 16;  // k16 steps per chunk and tap
   constexpr int C8 = CK / 8;   // 16-byte staging units per voxel and chunk
-  constexpr int UNITS = kWX * WY * kWZ * C8;
-  constexpr int CHUNK_B = 27 * KS * NB * 32;  // uint4 of B per chunk and N tile
+  constexpr int PLANE = WY * kWZ;              // window voxels per x plane
+  constexpr int TAP_B = KS * NB * 32;          // uint4 of B per tap, chunk and N tile
+  constexpr int CHUNK_B = 27 * TAP_B;
   const int cin_k = nchunks * CK;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -105,6 +124,12 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
   const int y0 = (blockIdx.x / nzb % nyb) * TY;
   const int x0 = (blockIdx.x / nzb / nyb) * kTX;
   const int nb = blockIdx.y;
+  // this split's K units [ku0, ku1): unit u is chunk u / taps and, with
+  // taps = 3, its dx tap plane u % 3
+  if (!SPLIT) taps = 1;
+  const int nunits = nchunks * taps;
+  const int ku0 = SPLIT ? blockIdx.z * nunits / splits : 0;
+  const int ku1 = SPLIT ? (blockIdx.z + 1) * nunits / splits : nunits;
 
   for (int i = tid; i < 4 * cin_k; i += kThreads) normp[i] = norm[i];
 
@@ -132,14 +157,20 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
   const bool vec = (cin & 7) == 0;
   const uint4* wblk = wpk + (size_t)nb * nchunks * CHUNK_B + lane;
 
-  for (int c = 0; c < nchunks; ++c) {
+  for (int c = ku0 / taps; c * taps < ku1; ++c) {
+    // dx tap planes [dx0, dx1) of this chunk, and the window x planes
+    // [dx0, dx1 + kTX - 1) that they read
+    const int dx0 = SPLIT ? (max(ku0, c * taps) - c * taps) * 3 / taps : 0;
+    const int dx1 = SPLIT ? (min(ku1, (c + 1) * taps) - c * taps) * 3 / taps : 3;
+    const int units = (dx1 - dx0 + kTX - 1) * PLANE * C8;
     __syncthreads();  // the previous chunk is consumed; normp is ready
 
     // --- stage the chunk's window: 8 channels (16 bytes) per unit, norm +
     //     act in fp32, zero outside the volume and past cin, round to bf16.
     //     Each thread issues the loads of kBatch units before it uses any.
     const int cbase = c * CK;
-    for (int u0 = tid; u0 < UNITS; u0 += kBatch * kThreads) {
+    const int vbase = dx0 * PLANE;  // first staged window voxel
+    for (int u0 = tid; u0 < units; u0 += kBatch * kThreads) {
       uint4 raw[kBatch];
       int ch[kBatch];  // first channel of the unit, -1 past the units
       bool live[kBatch];
@@ -149,8 +180,8 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
         raw[i] = make_uint4(0u, 0u, 0u, 0u);
         ch[i] = -1;
         live[i] = false;
-        if (u < UNITS) {
-          const int v = u / C8;  // window voxel, (ix, iy, iz) row-major
+        if (u < units) {
+          const int v = vbase + u / C8;  // window voxel, (ix, iy, iz) row-major
           const int iz = v % kWZ, iy = v / kWZ % WY, ix = v / kWZ / WY;
           const int gx = x0 - 1 + ix, gy = y0 - 1 + iy, gz = z0 - 1 + iz;
           ch[i] = cbase + (u % C8) * 8;
@@ -173,27 +204,28 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
         if (ch[i] < 0) continue;
         const int u = u0 + i * kThreads;
         const uint4 v = live[i] ? act8(raw[i], normp, cin_k, ch[i]) : make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(win + (u / C8) * CS + (u % C8) * 8) = v;
+        *reinterpret_cast<uint4*>(win + (vbase + u / C8) * CS + (u % C8) * 8) = v;
       }
     }
     __syncthreads();
 
-    // --- the chunk's 27 taps x KS k steps
+    // --- the chunk's taps in [dx0, dx1) x 9 x KS k steps
     const uint4* wq = wblk + (size_t)c * CHUNK_B;
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
+    for (int dx = 0; dx < 3; ++dx) {
+      if (dx < dx0 || dx >= dx1) continue;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
         for (int dz = 0; dz < 3; ++dz) {
           constexpr uint32_t CS2 = CS * 2;
           const uint32_t tap = (uint32_t)((dx * WY + dy) * kWZ + dz) * CS2;
+          const uint4* wt = wq + ((dx * 3 + dy) * 3 + dz) * TAP_B;
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
             uint4 b[NB];
 #pragma unroll
-            for (int p = 0; p < NB; ++p) b[p] = __ldg(wq + p * 32);
-            wq += NB * 32;
+            for (int p = 0; p < NB; ++p) b[p] = __ldg(wt + (ks * NB + p) * 32);
             uint32_t a[MW][4];
 #pragma unroll
             for (int f = 0; f < MW; ++f) ldmatrix_x4(a[f], abase[f] + tap + ks * 32);
@@ -206,12 +238,32 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
             }
           }
         }
+    }
   }
 
-  // --- epilogue: bias, store, per-channel sums over live voxels. Lane holds
-  //     rows g and g + 8 of each fragment, columns 2t and 2t + 1 of each n8
+  // --- epilogue. Lane holds rows g and g + 8 of each fragment, columns 2t
+  //     and 2t + 1 of each n8 tile
   const int g = lane >> 2, t = lane & 3;
   const int col0 = nb * BN + 2 * t;
+  if (SPLIT) {  // raw partial sums into this split's workspace slice
+    float* wsk = ws + (size_t)blockIdx.z * X * Y * Z * cout_p;
+#pragma unroll
+    for (int f = 0; f < MW; ++f) {
+      const int r = warp * MW + f;
+      const int gx = x0 + r / TY, gy = y0 + r % TY;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gz = z0 + g + 8 * h;
+        if (gx < X && gy < Y && gz < Z) {
+          float* dst = wsk + (((size_t)gx * Y + gy) * Z + gz) * cout_p + col0;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) store2(dst + j * 8, acc[f][j][2 * h], acc[f][j][2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // one split: bias, store, per-channel sums over live voxels
   float bv[NT][2], s1[NT][2], s2[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -270,44 +322,120 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
   }
 }
 
-template <int BN, int CK, typename OutT>
+// Finishing pass of a split call: y = sum of the splits' partial sums (in
+// split order) + bias, rounded once, and the per-channel sums of those fp32
+// values. A block owns kFinCols columns of kFinVox voxels; thread (r, q)
+// holds 4 columns of voxel rows r, r + kFinRows, ... It reads each
+// workspace value once and writes y once, so it is bound by the bytes.
+constexpr int kFinCols = 32;
+constexpr int kFinRows = kThreads / (kFinCols / 4);
+constexpr int kFinVox = 4 * kFinRows;
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+    finish_kernel(const float* __restrict__ ws,    // (splits, nvox, cout_p)
+                  const float* __restrict__ bias,  // (cout_p,)
+                  OutT* __restrict__ y,            // (nvox, cout_p)
+                  float* __restrict__ sums,        // (2, cout_p)
+                  int nvox, int cout_p, int splits) {
+  __shared__ float red[kWarps][2][kFinCols];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = tid % (kFinCols / 4), r = tid / (kFinCols / 4);
+  const int col = blockIdx.y * kFinCols + 4 * q;
+  const float4 bv = *reinterpret_cast<const float4*>(bias + col);
+  const size_t slice = (size_t)nvox * cout_p;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  const int v_end = min(nvox, (int)(blockIdx.x + 1) * kFinVox);
+  for (int v = blockIdx.x * kFinVox + r; v < v_end; v += kFinRows) {
+    const float* src = ws + (size_t)v * cout_p + col;
+    float4 a = *reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int k = 1; k < splits; ++k) {
+      const float4 p = *reinterpret_cast<const float4*>(src + k * slice);
+      a.x += p.x;
+      a.y += p.y;
+      a.z += p.z;
+      a.w += p.w;
+    }
+    const float o[4] = {a.x + bv.x, a.y + bv.y, a.z + bv.z, a.w + bv.w};
+    OutT* dst = y + (size_t)v * cout_p + col;
+    store2(dst, o[0], o[1]);
+    store2(dst + 2, o[2], o[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s1[e] += o[e];
+      s2[e] += o[e] * o[e];
+    }
+  }
+  // lanes q, q + 8, q + 16, q + 24 of a warp hold the same columns
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int m = kFinCols / 4; m < 32; m <<= 1) {
+      s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], m);
+      s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], m);
+    }
+  if (lane < kFinCols / 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[warp][0][4 * q + e] = s1[e];
+      red[warp][1][4 * q + e] = s2[e];
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * kFinCols) {  // tid = which * kFinCols + column of the block
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][tid / kFinCols][tid % kFinCols];
+    atomicAdd(&sums[(tid / kFinCols) * cout_p + blockIdx.y * kFinCols + tid % kFinCols], v);
+  }
+}
+
+template <int BN, int CK, typename OutT, bool SPLIT>
 int launch(const void* x, const void* norm, const void* w, const void* bias, void* y, void* sums,
-           int X, int Y, int Z, int cin, int nchunks, int cout_p, cudaStream_t st) {
+           void* ws, int X, int Y, int Z, int cin, int nchunks, int cout_p, int splits, int taps,
+           cudaStream_t st) {
   using B = Brick<BN>;
   const size_t bytes = (size_t)4 * nchunks * CK * 4 + (size_t)kWarps * 2 * BN * 4 +
                        (size_t)kWX * B::WY * kWZ * (CK + 8) * 2;
-  auto kern = conv_in_act_kernel<BN, CK, OutT>;
+  auto kern = conv_in_act_kernel<BN, CK, OutT, SPLIT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + B::TY - 1) / B::TY, nxb = (X + kTX - 1) / kTX;
-  dim3 grid(nxb * nyb * nzb, cout_p / BN);
+  dim3 grid(nxb * nyb * nzb, cout_p / BN, splits);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norm),
       static_cast<const uint4*>(w), static_cast<const float*>(bias), static_cast<OutT*>(y),
-      static_cast<float*>(sums), X, Y, Z, cin, nchunks, cout_p);
+      static_cast<float*>(sums), static_cast<float*>(ws), X, Y, Z, cin, nchunks, cout_p, splits,
+      taps);
   return (int)cudaGetLastError();
 }
 
 template <typename OutT>
 int dispatch(const void* x, const void* norm, const void* w, const void* bias, void* y,
-             void* sums, int X, int Y, int Z, int cin, int ck, int nchunks, int cout_p, int bn,
-             cudaStream_t st) {
-  if (bn == 64 && ck == 32)
-    return launch<64, 32, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
-  if (bn == 64 && ck == 16)
-    return launch<64, 16, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
-  if (bn == 32 && ck == 32)
-    return launch<32, 32, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
-  if (bn == 32 && ck == 16)
-    return launch<32, 16, OutT>(x, norm, w, bias, y, sums, X, Y, Z, cin, nchunks, cout_p, st);
+             void* sums, void* ws, int X, int Y, int Z, int cin, int ck, int nchunks, int cout_p,
+             int bn, int splits, int taps, cudaStream_t st) {
+#define BOA_LAUNCH(BN, CK)                                                                 \
+  if (bn == BN && ck == CK)                                                                \
+    return splits > 1 ? launch<BN, CK, OutT, true>(x, norm, w, bias, y, sums, ws, X, Y, Z,  \
+                                                   cin, nchunks, cout_p, splits, taps, st) \
+                      : launch<BN, CK, OutT, false>(x, norm, w, bias, y, sums, ws, X, Y, Z, \
+                                                    cin, nchunks, cout_p, 1, 1, st);
+  BOA_LAUNCH(64, 32)
+  BOA_LAUNCH(64, 16)
+  BOA_LAUNCH(32, 32)
+  BOA_LAUNCH(32, 16)
+#undef BOA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Returns the cudaError_t of the
-// launch (0 on success).
+// Plain C entry points (bound with ctypes). Each returns the cudaError_t of
+// its launch (0 on success).
+//
+// boa_conv_in_act_fwd: the conv.
 //   x     (X, Y, Z, cin) bf16, contiguous, 16-byte aligned, any cin >= 1
 //   norm  (4, nchunks * ck) float32 rows [mean, inv_std * gamma, beta, slope];
 //         channels past cin need scale 0
@@ -321,16 +449,48 @@ int dispatch(const void* x, const void* norm, const void* w, const void* bias, v
 //   sums  (2, cout_p) float32, zeroed by the caller
 //   ck    16 or 32 channels per chunk;  bn 32 or 64 columns per N tile,
 //         cout_p a multiple of bn
+//   splits, taps: K is nchunks * taps units (taps 1: a unit is a chunk;
+//         taps 3: a chunk's dx tap plane), split into `splits` contiguous
+//         ranges, 1 <= splits <= nchunks * taps. splits = 1: y, sums are
+//         written and ws is not read. splits > 1: y, bias and sums are not
+//         touched; split k writes its raw sums to ws (splits, X*Y*Z,
+//         cout_p) float32 slice k, and boa_conv_in_act_finish completes
 extern "C" int boa_conv_in_act_fwd(const void* x, const void* norm, const void* w,
-                                   const void* bias, void* y, void* sums, int X, int Y, int Z,
-                                   int cin, int ck, int nchunks, int cout_p, int bn, int out_f32,
-                                   void* stream) {
+                                   const void* bias, void* y, void* sums, void* ws, int X, int Y,
+                                   int Z, int cin, int ck, int nchunks, int cout_p, int bn,
+                                   int splits, int taps, int out_f32, void* stream) {
   if (cin < 1 || nchunks * ck < cin || (nchunks - 1) * ck >= cin || bn <= 0 || cout_p % bn != 0 ||
-      X < 1 || Y < 1 || Z < 1)
+      X < 1 || Y < 1 || Z < 1 || (taps != 1 && taps != 3) || splits < 1 ||
+      splits > nchunks * taps || splits > 65535 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? dispatch<float>(x, norm, w, bias, y, sums, X, Y, Z, cin, ck, nchunks, cout_p,
-                                   bn, st)
-                 : dispatch<__nv_bfloat16>(x, norm, w, bias, y, sums, X, Y, Z, cin, ck, nchunks,
-                                           cout_p, bn, st);
+  return out_f32 ? dispatch<float>(x, norm, w, bias, y, sums, ws, X, Y, Z, cin, ck, nchunks,
+                                   cout_p, bn, splits, taps, st)
+                 : dispatch<__nv_bfloat16>(x, norm, w, bias, y, sums, ws, X, Y, Z, cin, ck,
+                                           nchunks, cout_p, bn, splits, taps, st);
+}
+
+// boa_conv_in_act_finish: completes a call made with splits > 1.
+//   ws (splits, nvox, cout_p) float32 from boa_conv_in_act_fwd; bias
+//   (cout_p,) float32; y (nvox, cout_p) bf16 or float32 (out_f32); sums
+//   (2, cout_p) float32, zeroed by the caller; cout_p a multiple of 32
+extern "C" int boa_conv_in_act_finish(const void* ws, const void* bias, void* y, void* sums,
+                                      int nvox, int cout_p, int splits, int out_f32,
+                                      void* stream) {
+  if (nvox < 1 || cout_p < kFinCols || cout_p % kFinCols != 0 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((nvox + kFinVox - 1) / kFinVox, cout_p / kFinCols);
+  const float* w = static_cast<const float*>(ws);
+  const float* b = static_cast<const float*>(bias);
+  if (out_f32)
+    finish_kernel<float><<<grid, kThreads, 0, st>>>(w, b, static_cast<float*>(y),
+                                                    static_cast<float*>(sums), nvox, cout_p,
+                                                    splits);
+  else
+    finish_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(w, b,
+                                                            static_cast<__nv_bfloat16*>(y),
+                                                            static_cast<float*>(sums), nvox,
+                                                            cout_p, splits);
+  return (int)cudaGetLastError();
 }

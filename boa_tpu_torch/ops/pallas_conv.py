@@ -5,8 +5,10 @@ Counterpart of `boa_tpu/ops/pallas_conv.py` (`NormAct`, `identity_normact`,
 `conv3d_in_act`, `stats_from_sums`). `conv3d_in_act` is a kernel wrapper:
 a CPU tensor takes the plain PyTorch version `conv3d_in_act_plain` (same
 contract, same bf16 rounding points); a CUDA tensor launches
-`csrc/conv_in_act.cu` or raises. Each launch adds one to
-`LAUNCHES["conv3d_in_act"]`.
+`csrc/conv_in_act.cu` or raises. Each call adds one to
+`LAUNCHES["conv3d_in_act"]`; a call that `_split_plan` splits over K also
+launches the kernel's finishing pass, counted in
+`LAUNCHES["conv3d_in_act_finish"]`.
 
 The reference's `plan_packing` and `pack_weights` build the TPU's z-packed
 lane layout (p z-slices share the 128 lanes) with group-shift weight
@@ -23,7 +25,10 @@ import torch
 import torch.nn.functional as F
 
 #: kernel launches since the last `reset_launches()`
-LAUNCHES: dict[str, int] = {"conv3d_in_act": 0}
+LAUNCHES: dict[str, int] = {"conv3d_in_act": 0, "conv3d_in_act_finish": 0}
+
+#: the most bytes the fp32 workspace of a split call may take
+SPLIT_WORKSPACE_BYTES = 32 << 20
 
 
 class NormAct(NamedTuple):
@@ -140,6 +145,37 @@ def _plan(cin: int, cout: int) -> tuple[int, int, int, int]:
     return ck, -(-cin // ck), bn, _round_up(cout, bn)
 
 
+def _blocks(X: int, Y: int, Z: int, bn: int, cout_p: int) -> int:
+    """Blocks of one K split: the kernel's 4 x TY x 16 output bricks (TY = 4
+    at bn 64, 8 at bn 32) times its N tiles."""
+    ty = 4 if bn == 64 else 8
+    return -(-X // 4) * -(-Y // ty) * -(-Z // 16) * (cout_p // bn)
+
+
+def _split_plan(X: int, Y: int, Z: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
+    """(splits, taps) of a call on a card with `sms` SMs. K is nchunks *
+    taps units (taps 1: whole chunks; taps 3: a chunk's dx tap planes), cut
+    into `splits` contiguous ranges of at most `per` units. The aim is about
+    two blocks per SM (two fit on one); of the two unit sizes the one that
+    leaves less work per split wins, whole chunks on a tie (a tap plane
+    stages 4 of the window's 6 planes for a third of the products). The
+    fp32 workspace stays within SPLIT_WORKSPACE_BYTES."""
+    _, nch, bn, cout_p = _plan(cin, cout)
+    want = max(1, 2 * sms // _blocks(X, Y, Z, bn, cout_p))
+    per1, per3 = -(-nch // want), -(-3 * nch // want)
+    taps, per = (3, per3) if per3 < 3 * per1 else (1, per1)
+    splits = -(-nch * taps // per)
+    while splits > 1 and splits * X * Y * Z * cout_p * 4 > SPLIT_WORKSPACE_BYTES:
+        per += 1
+        splits = -(-nch * taps // per)
+    return splits, (taps if splits > 1 else 1)
+
+
+def _split_units(k: int, splits: int, units: int) -> range:
+    """The K units of split k, as the kernel cuts them."""
+    return range(k * units // splits, (k + 1) * units // splits)
+
+
 def pack_in_act_weights(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, cin, cout) -> the K5 kernel's B fragments, bf16, zero padded
     to whole chunks and N tiles: for N tile nb, chunk c, tap
@@ -189,16 +225,51 @@ def conv3d_in_act_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     return y[0], sums[0]
 
 
+def split_partials_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor, *,
+                         slope: float = 1.0, splits: int, taps: int) -> torch.Tensor:
+    """What the K splits of a split call store in the workspace, in plain
+    PyTorch: (splits, X, Y, Z, cout) float32 partial sums without bias.
+    Split k's conv keeps only the weights of its units' input channels and
+    dx tap planes; the rounding points are `conv3d_in_act_plain`'s."""
+    cin, cout = w.shape[3], w.shape[4]
+    ck, nch, _, _ = _plan(cin, cout)
+    parts = []
+    for k in range(splits):
+        keep = torch.zeros(3, nch * ck, dtype=w.dtype, device=w.device)  # (dx, ci)
+        for u in _split_units(k, splits, nch * taps):
+            c = u // taps
+            keep[slice(None) if taps == 1 else u % 3, c * ck:(c + 1) * ck] = 1
+        wk = w * keep[:, None, None, :cin, None]
+        parts.append(_conv_plain(x[None], norm, wk, None, slope, 1, torch.float32)[0][0])
+    return torch.stack(parts)
+
+
+def finish_plain(partials: torch.Tensor, b: torch.Tensor | None,
+                 out_dtype=torch.bfloat16):
+    """The kernel's finishing pass in plain PyTorch: the (splits, ..., cout)
+    partial sums added in split order, plus the fp32 bias, rounded once to
+    out_dtype; the sums from the fp32 values. Returns (y, sums (2, cout))."""
+    y = partials[0]
+    for p in partials[1:]:
+        y = y + p
+    y = y + _bias(b, y.shape[-1], y.device)
+    dims = tuple(range(y.dim() - 1))
+    return y.to(out_dtype), torch.stack([y.sum(dims), (y * y).sum(dims)])
+
+
 def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
                    b: torch.Tensor | None, *, slope: float = 1.0,
                    out_dtype=torch.bfloat16,
                    w_packed: torch.Tensor | None = None,
-                   cin: int | None = None, cout: int | None = None):
+                   cin: int | None = None, cout: int | None = None,
+                   split: tuple[int, int] | None = None):
     """(launch, (y, sums)) of `conv3d_in_act` on CUDA tensors, with the same
     arguments: the weight packing (unless `w_packed` is given), the padded
-    bias, the norm rows and the output buffers are made here, once;
-    `launch()` zeroes `sums`, runs the kernel alone (and counts it) and fills
-    `(y, sums)`, which the wrapper would return."""
+    bias, the norm rows, the output buffers and the split workspace are
+    made here, once; `launch()` zeroes `sums`, runs the kernel alone (and,
+    when split, its finishing pass), counts it and fills `(y, sums)`, which
+    the wrapper would return. `split` = (splits, taps) replaces
+    `_split_plan`'s choice, for tests; the wrapper never passes it."""
     from boa_tpu_torch import _build
 
     cin, cout = _shapes(x, w, w_packed, cin, cout)
@@ -218,16 +289,29 @@ def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     rows = _norm_rows(norm, slope, 1, cin, nch * ck, dev)
     y = torch.empty((X, Y, Z, cout_p), dtype=out_dtype, device=dev)
     sums = torch.empty((2, cout_p), dtype=torch.float32, device=dev)
-    fn = _build.lib("conv_in_act").boa_conv_in_act_fwd
+    if split is None:
+        split = _split_plan(X, Y, Z, cin, cout,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits, taps = split
+    ws = (torch.empty((splits, X * Y * Z, cout_p), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    lib = _build.lib("conv_in_act")
+    out_f32, stream = _out_f32(out_dtype), _stream()
     args = (xq.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), sums.data_ptr(), X, Y, Z, cin, ck, nch, cout_p, bn,
-            _out_f32(out_dtype), _stream())
+            y.data_ptr(), sums.data_ptr(), None if ws is None else ws.data_ptr(),
+            X, Y, Z, cin, ck, nch, cout_p, bn, splits, taps, out_f32, stream)
+    fin_args = (None if ws is None else ws.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                sums.data_ptr(), X * Y * Z, cout_p, splits, out_f32, stream)
 
     def launch() -> None:
         sums.zero_()
-        _build.check(fn(*args), "conv3d_in_act")
+        _build.check(lib.boa_conv_in_act_fwd(*args), "conv3d_in_act")
+        if splits > 1:
+            _build.check(lib.boa_conv_in_act_finish(*fin_args), "conv3d_in_act finish")
+            LAUNCHES["conv3d_in_act_finish"] += 1
         LAUNCHES["conv3d_in_act"] += 1
-    launch.tensors = (xq, rows, wp, bias, y, sums)
+    launch.tensors = (xq, rows, wp, bias, y, sums, ws)
+    launch.split = split
     return launch, (y[..., :cout], sums[:, :cout])
 
 

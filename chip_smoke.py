@@ -22,12 +22,14 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 4. fused    - the wide-channel conv kernel (K5) against its plain version at
               each of the 17 convs of the fused forward (same bars and
               timings as phase 2; `kernel_ms` is the launch alone,
-              `pallas_conv.prepare_launch`), then the
-              full-width fused forward on the same tile and model as phase
-              3: argmax agreement > 0.99 with the same forward on the plain
-              K5 and > 0.98 with the eager forward, exactly 17 K5 launches,
-              and its time per tile beside the composite's and the eager
-              forward's
+              `pallas_conv.prepare_launch`, finishing pass included), with
+              each call's K splits and blocks: every call at 16^3 and below
+              must split, none at 128^3. Then the full-width fused
+              forward on the same tile and model as phase 3: argmax
+              agreement > 0.99 with the same forward on the plain K5 and
+              > 0.98 with the eager forward, exactly 17 K5 calls and one
+              finishing launch per split call, and its time per tile beside
+              the composite's and the eager forward's
 5. study    - a small study through predict_image on the card against the
               same call on the CPU (labels agree > 0.99), then the
               512x512x300 fast-total study (one warm-up, three timed runs)
@@ -353,8 +355,12 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
         nbytes = (x.numel() * 2 + w.numel() * 2 + cout * 2 + 4 * cin * 4
                   + s ** 3 * cout * 2 + 2 * cout * 4)
         bytes_ms, ops_ms = bound(nbytes, 2.0 * s ** 3 * 27 * cin * cout)
+        splits, taps = kern.split
+        _, _, bn, cout_p = pc._plan(cin, cout)
         cases.append({"name": "conv3d_in_act", "spatial": s, "cin": cin, "cout": cout,
-                      "pending_norm": pending, "max_abs_err": err,
+                      "pending_norm": pending, "splits": splits, "taps": taps,
+                      "blocks": splits * pc._blocks(s, s, s, bn, cout_p),
+                      "max_abs_err": err,
                       "rel_err_sums": rel_sums,
                       "kernel_ms": time_ms(torch, kern, 10),
                       "wrapper_ms": time_ms(torch, wrapper, 10),
@@ -367,6 +373,13 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
     if bad:
         emit({"phase": "fused", "cases": cases})
         raise AssertionError(f"K5 disagrees with its plain version: {bad}")
+    # split-K at 16^3 and below, where a call is too small for the card;
+    # never at 128^3
+    unsplit = [c for c in cases if (c["spatial"] <= 16 and c["splits"] == 1)
+               or (c["spatial"] == 128 and c["splits"] > 1)]
+    if unsplit:
+        emit({"phase": "fused", "cases": cases})
+        raise AssertionError(f"K5 split plan: {unsplit}")
 
     res = {}
     xb = torch.tensor(np.random.default_rng(3).normal(size=(1, 128, 128, 128, 1)),
@@ -380,6 +393,7 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
         got = unet_forward_fused(model, packed, x).float()
         torch.cuda.synchronize()
         res["launches"] = pc.LAUNCHES["conv3d_in_act"]
+        res["finish_launches"] = pc.LAUNCHES["conv3d_in_act_finish"]
         res["rowconv_launches"] = dict(rc.LAUNCHES)
         plain = unet_forward_fused(model, packed, x, conv=pc.conv3d_in_act_plain).float()
         eager = model.forward_eager(xb)[0].float()
@@ -400,7 +414,8 @@ def phase_fused(torch, rc, pc, profile_run: bool = False) -> tuple[list[dict], d
         del model, packed
         torch.cuda.empty_cache()
     emit({"phase": "fused", "cases": cases, **res})
-    if res["launches"] != len(FUSED_CONVS) or any(res["rowconv_launches"].values()):
+    if (res["launches"] != len(FUSED_CONVS) or any(res["rowconv_launches"].values())
+            or res["finish_launches"] != sum(c["splits"] > 1 for c in cases)):
         raise AssertionError(f"fused forward launches {res}")
     if res["argmax_agree_plain"] <= 0.99 or res["argmax_agree_eager"] <= 0.98:
         raise AssertionError(f"fused forward argmax agreement {res}")
@@ -553,7 +568,8 @@ def _summary(cases, fused_cases, fused, study) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
-            summary.append(_row(name, fused_cases, fused_cases, fused["launches"]))
+            summary.append(dict(_row(name, fused_cases, fused_cases, fused["launches"]),
+                                finish_launches=fused["finish_launches"]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32, 64->32,
         # 32->32; K2 and K3 on the concat slice, as the main path runs them

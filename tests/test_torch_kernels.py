@@ -268,14 +268,73 @@ def test_in_act_kernel_matches_plain(cuda, cin, cout, shape):
             assert float((s - sr).abs().max() / sr[1].abs().max().clamp_min(1e-6)) < 1e-2
 
 
+@pytest.mark.parametrize("split", ["one", "two", "most"])
+@pytest.mark.parametrize("s,cin", [(16, 320), (16, 640), (8, 320), (8, 640), (4, 320),
+                                   (4, 640)])
+def test_in_act_split_kernel_matches_plain(cuda, s, cin, split):
+    """K5 split over K at the fused forward's small extents, with the split
+    forced to 1, 2 and the most (one split per dx tap plane), bf16 and fp32
+    out: within the bars of its plain version, y bitwise equal over two
+    launches (the splits are summed in a fixed order), and one finishing
+    pass counted per split launch."""
+    from boa_tpu_torch.ops import pallas_conv as pc
+
+    cout = 256 if s == 16 else 320
+    rng = np.random.default_rng(cin + s)
+    x = torch.tensor(rng.normal(size=(s, s, s, cin)) * 2 + 0.3, dtype=torch.bfloat16,
+                     device=cuda)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) / np.sqrt(27 * cin),
+                     dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.float32, device=cuda)
+    norm = _norm(rng, 1, cin, cuda)
+    norm = norm._replace(mean=norm.mean[0], inv_std=norm.inv_std[0])
+    nch = pc._plan(cin, cout)[1]
+    plan = {"one": (1, 1), "two": (2, 1), "most": (3 * nch, 3)}[split]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        launch, (y, sums) = pc.prepare_launch(x, norm, w, b, slope=0.01, out_dtype=out_dtype,
+                                              split=plan)
+        before = dict(pc.LAUNCHES)
+        launch()
+        torch.cuda.synchronize()
+        first = y.clone()
+        launch()
+        torch.cuda.synchronize()
+        assert pc.LAUNCHES["conv3d_in_act"] == before["conv3d_in_act"] + 2
+        assert (pc.LAUNCHES["conv3d_in_act_finish"]
+                == before["conv3d_in_act_finish"] + (2 if plan[0] > 1 else 0))
+        bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+        assert torch.equal(first.contiguous().view(bits), y.contiguous().view(bits))
+        yr, sr = pc.conv3d_in_act_plain(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        assert y.shape == yr.shape == (s, s, s, cout) and y.dtype == out_dtype
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+        assert float((sums - sr).abs().max() / sr[1].abs().max()) < 1e-2
+
+
+def test_in_act_wrapper_splits_as_planned(cuda):
+    """The public call takes `_split_plan`'s split for the card it runs on."""
+    from boa_tpu_torch.ops import pallas_conv as pc
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = torch.randn(8, 8, 8, 640, device=cuda).to(torch.bfloat16)
+    w = torch.randn(3, 3, 3, 640, 320, device=cuda) * 0.01
+    splits, _ = pc._split_plan(8, 8, 8, 640, 320, sms)
+    before = dict(pc.LAUNCHES)
+    y, _ = pc.conv3d_in_act(x, pc.identity_normact(640, cuda), w, None)
+    torch.cuda.synchronize()
+    assert splits > 1 and y.shape == (8, 8, 8, 320)
+    assert pc.LAUNCHES["conv3d_in_act"] == before["conv3d_in_act"] + 1
+    assert pc.LAUNCHES["conv3d_in_act_finish"] == before["conv3d_in_act_finish"] + 1
+
+
 def test_in_act_cuda_tensor_never_takes_the_plain_route(cuda, monkeypatch):
     from boa_tpu_torch.ops import pallas_conv as pc
 
     def refuse(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
 
-    monkeypatch.setattr(pc, "conv3d_in_act_plain", refuse)
-    monkeypatch.setattr(pc, "_conv_plain", refuse)
+    for name in ("conv3d_in_act_plain", "_conv_plain", "split_partials_plain",
+                 "finish_plain"):
+        monkeypatch.setattr(pc, name, refuse)
     x = torch.randn(6, 5, 7, 24, device=cuda).to(torch.bfloat16)
     w = torch.randn(3, 3, 3, 24, 40, device=cuda) * 0.1
     before = pc.LAUNCHES["conv3d_in_act"]
