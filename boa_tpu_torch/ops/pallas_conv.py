@@ -155,11 +155,12 @@ def _blocks(X: int, Y: int, Z: int, bn: int, cout_p: int) -> int:
 def _split_plan(X: int, Y: int, Z: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
     """(splits, taps) of a call on a card with `sms` SMs. K is nchunks *
     taps units (taps 1: whole chunks; taps 3: a chunk's dx tap planes), cut
-    into `splits` contiguous ranges of at most `per` units. The aim is about
-    two blocks per SM (two fit on one); of the two unit sizes the one that
-    leaves less work per split wins, whole chunks on a tie (a tap plane
-    stages 4 of the window's 6 planes for a third of the products). The
-    fp32 workspace stays within SPLIT_WORKSPACE_BYTES."""
+    into `splits` contiguous ranges of at most `per` units each. The aim is
+    about two blocks per SM, as many as the kernel keeps resident; of the
+    two unit sizes the one that leaves less work per split wins, whole
+    chunks on a tie (a tap plane stages 4 of the window's 6 planes for a
+    third of the products). The fp32 workspace stays within
+    SPLIT_WORKSPACE_BYTES."""
     _, nch, bn, cout_p = _plan(cin, cout)
     want = max(1, 2 * sms // _blocks(X, Y, Z, bn, cout_p))
     per1, per3 = -(-nch // want), -(-3 * nch // want)
