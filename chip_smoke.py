@@ -525,7 +525,8 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
             launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
             tiles = spans["tiles"]
             want = {"conv3d_rows": 4 * tiles, "conv3d_rows_stride2": tiles,
-                    "transpconv2_rows": tiles, "conv3d_in_act": 0}
+                    "transpconv2_rows": tiles, "conv3d_in_act": 0,
+                    "conv3d_in_act_finish": 0}
             assert tiles > 0 and launches == want, (launches, want)
             seg = r.seg.data
             assert seg.shape == shape and seg.dtype == np.uint8
