@@ -214,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
     __syncthreads();
 
     // --- the chunk's taps in [dx0, dx1) x 9 x KS k steps
-    const uint4* wq = wblk + (size_t)c * CHUNK_B;
+    const uint4* wq = wblk + (size_t)c * CHUNK_B + dx0 * 9 * TAP_B;
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
       if (dx < dx0 || dx >= dx1) continue;
@@ -224,12 +224,12 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
         for (int dz = 0; dz < 3; ++dz) {
           constexpr uint32_t CS2 = CS * 2;
           const uint32_t tap = (uint32_t)((dx * WY + dy) * kWZ + dz) * CS2;
-          const uint4* wt = wq + ((dx * 3 + dy) * 3 + dz) * TAP_B;
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
             uint4 b[NB];
 #pragma unroll
-            for (int p = 0; p < NB; ++p) b[p] = __ldg(wt + (ks * NB + p) * 32);
+            for (int p = 0; p < NB; ++p) b[p] = __ldg(wq + p * 32);
+            wq += NB * 32;
             uint32_t a[MW][4];
 #pragma unroll
             for (int f = 0; f < MW; ++f) ldmatrix_x4(a[f], abase[f] + tap + ks * 32);
