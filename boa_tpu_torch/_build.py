@@ -96,9 +96,6 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = libs["rowconv"].boa_rowconv_fwd
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-    fn.restype = i
     fn = libs["stride2conv"].boa_stride2conv_fwd
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     fn.restype = i
@@ -106,10 +103,10 @@ def _declare(libs: dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     fn = libs["conv_in_act"].boa_conv_in_act_fwd
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     fn = libs["conv_in_act"].boa_conv_in_act_finish
-    fn.argtypes = [p, p, p, p, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = i
 
 

@@ -1,67 +1,85 @@
-// Wide-channel fused 3x3x3 'same' conv with input-side instance-norm +
-// LeakyReLU and per-channel output sums, for Hopper (sm_90a): bf16 in,
-// fp32 accumulate, one sample.
+// Fused 3x3x3 'same' conv with input-side instance-norm + LeakyReLU and
+// per-sample, per-channel output sums, for Hopper (sm_90a): bf16 in, fp32
+// accumulate, a batch of N samples.
 //
 // Replaces: boa_tpu/ops/pallas_conv.py `_conv_kernel` (K5), the kernel of
 // `conv3d_in_act`, which the fused U-Net forward runs for every stride-1
-// 3x3x3 conv block. Contract, per input channel ci and output channel co:
+// 3x3x3 conv block; and boa_tpu/ops/rowconv.py `_rowconv_kernel` (K1) and
+// `_rowconv_g4_kernel` (K4, the same function with four output rows packed
+// for the TPU matrix unit), the stride-1 convs of the composite forward
+// (`ops/rowconv.py:conv3d_rows`). The stride-2 conv is stride2conv.cu.
+// Contract, per sample n, input channel ci and output channel co:
 //   act(x)  = LeakyReLU_s((x - mean) * scale + beta), scale = inv_std*gamma,
 //             s a per-channel slope (1 = identity), zero outside the volume
 //             AFTER act (torch pads the normalized tensor with zeros)
 //   y[o]    = bias + sum_{d, ci} w[d, ci, co] * act(x)[o + d - 1]
-//   sums    += (sum y, sum y^2) over live output voxels, from fp32 values
+//   sums[n] += (sum y, sum y^2) over live output voxels, from fp32 values
 // Rounding points follow the reference: x arrives in bf16, the norm runs in
 // fp32, act is rounded to bf16 for the tensor cores, the weights are bf16,
-// the accumulator and the bias are fp32, y is stored in bf16 or fp32.
+// the accumulator and the bias are fp32, y is stored in bf16 or fp32. Each
+// output voxel's channels are contiguous and the voxels ldy elements apart,
+// so y can be a channel slice of a wider buffer (the decoder concat).
 //
 // What bounds it on an H100: at the fused forward's shapes (128^3 down to
-// 4^3 voxels, cin 1..640, cout 32..320) every call but the 1->32 input conv
-// does 100-4000 FLOP per compulsory byte, so it is bound by the bf16 tensor
-// cores (989 TFLOP/s), not by the 3.35 TB/s memory; the 8^3 and 4^3 calls
-// are too small to fill 132 SMs at all. The design keeps the tensor cores
-// fed from on-chip memory, at any width:
+// 4^3 voxels, cin 1..640, cout 32..320) and at the composite's 128^3 calls
+// (cin 32 or 64, cout 32: 116-232 GFLOP against 0.27-0.4 GB) every call but
+// the 1-channel input conv does 100-4000 FLOP per compulsory byte, so it is
+// bound by the bf16 tensor cores (989 TFLOP/s), not by the 3.35 TB/s memory;
+// the 8^3 and 4^3 calls are too small to fill 132 SMs at all. The input
+// conv (cin = 1) is bound by the bytes of its 128^3 x 32 bf16 output. The
+// design keeps the tensor cores fed from on-chip memory, at any width:
 //
 // An implicit GEMM with M = output voxels, N = cout and K = 27 * cin. A block
-// of 8 warps owns a brick of 4 x TY x 16 output voxels (TY = 4 or 8) and one
-// tile of BN = 64 output channels (32 when cout <= 32); N tiles run on the
-// grid's y axis, so cout 320 is five tiles. K is walked in chunks of CK = 32
-// input channels (16 when cin <= 16): each chunk's haloed window
-// (6 x (TY+2) x 18 voxels) is staged into shared memory with norm + act
-// applied on the way, so the halo is zero after act and normalized
+// of 8 warps owns a brick of 4 x TY x 16 output voxels (TY = 4 or 8) of one
+// sample and one tile of BN = 64 output channels (32 when cout <= 32); N
+// tiles run on the grid's y axis, so cout 320 is five tiles. K is walked in
+// chunks of CK = 32 input channels (16 when cin <= 16): each chunk's haloed
+// window (6 x (TY+2) x 18 voxels) is staged into shared memory with norm +
+// act applied on the way, so the halo is zero after act and normalized
 // activations never touch device memory; then all 27 taps of the chunk are
-// multiplied out of it. Chunking bounds the window at any cin (the 640-wide
-// decoder concat is 20 chunks). The window keeps channels innermost with a
-// voxel stride of CK + 8, so the 16 output z of one A fragment are 16
-// shared-memory rows that `ldmatrix` reads without bank conflicts. Each warp
-// holds MW A fragments against the block's BN columns (64 fp32 accumulators
-// a thread) and multiplies with `mma.sync` m16n8k16. B fragments are packed
-// by the wrapper in the exact per-lane register order, chunk-major per N
-// tile, so a warp reads them with coalesced 16-byte loads that the block's
-// eight warps share through L1. Padded input channels have scale 0 (their
-// act is 0) and zero weights. The epilogue adds the fp32 bias, stores y from
-// registers and reduces sum/sum^2 with warp shuffles and shared memory
-// before one atomicAdd per channel and block. Two blocks share an SM (at
-// most 128 registers a thread), so one block's staging overlaps the other's
-// products.
+// multiplied out of it. A brick of 4 output x rows stages 6 window planes,
+// about 2 loads of each input voxel. Chunking bounds the window at any cin
+// (the 640-wide decoder concat is 20 chunks). The window keeps channels
+// innermost with a voxel stride of CK + 8, so the 16 output z of one A
+// fragment are 16 shared-memory rows that `ldmatrix` reads without bank
+// conflicts. Each warp holds MW A fragments against the block's BN columns
+// (64 fp32 accumulators a thread) and multiplies with `mma.sync` m16n8k16. B
+// fragments are packed by the wrapper in the exact per-lane register order,
+// chunk-major per N tile, so a warp reads them with coalesced 16-byte loads
+// that the block's eight warps share through L1. Padded input channels have
+// scale 0 (their act is 0) and zero weights. The epilogue adds the fp32
+// bias, stores y from registers and reduces sum/sum^2 with warp shuffles and
+// shared memory before one atomicAdd per channel and block. Two blocks share
+// an SM (at most 128 registers a thread), so one block's staging overlaps
+// the other's products. The sample index is folded into the grid's z axis
+// and enters the addresses as a row offset computed once per block.
+//
+// The 1-channel input conv (CK = 1, `conv1_kernel`) folds the 27 taps into
+// K instead: K = 27 taps padded to 32, two k16 steps per A fragment where a
+// 16-channel chunk would take 27. It stages the 1-channel window with norm
+// + act; each lane gathers its A values (row = output z, k = tap) from the
+// window at per-lane tap offsets fixed for the block, and holds the whole
+// (32, BN) B tile in registers. Padded taps (k >= 27) have zero weights and
+// read tap 0's value, which the output already depends on.
 //
 // Split-K. The calls at 16^3 and below have 5-64 bricks x N tiles, too few
 // blocks for 132 SMs, and each block would walk all of K alone. The grid's
-// z axis splits K: the wrapper (`ops/pallas_conv.py:_split_plan`) cuts the
-// K units (the chunks, or chunk x dx tap plane when chunks alone give too
-// few blocks, as the 4^3 call's 10 chunks do) into `splits` contiguous
-// ranges, about two blocks per SM in all. A split stages only the window
-// planes its dx range reads. With splits > 1 each split stores its raw
-// fp32 accumulators (no bias) with plain stores into its own slice of a
-// workspace (splits, X*Y*Z, cout_p), and `finish_kernel` sums the slices in
-// a fixed order, adds the bias once, rounds once, stores y and reduces the
-// sums from those fp32 values: y is bitwise the same from run to run. With
-// splits = 1 the fused epilogue above stays, with no workspace and no
-// second launch. Tried and dropped: a double-buffered window (the next
-// chunk's raw window by cp.async while the current one multiplies, norm +
-// act in place) gained 1-5 % at 64^3 and 32^3 and lost 10 % on a 16^3
-// split call: two blocks per SM already overlap one's staging with the
-// other's products. Not done yet (later work): weights in shared memory,
-// wgmma + TMA.
+// z axis (blockIdx.z = n * splits + k) splits K: the wrapper
+// (`ops/pallas_conv.py:_split_plan`) cuts the K units (the chunks, or chunk
+// x dx tap plane when chunks alone give too few blocks, as the 4^3 call's 10
+// chunks do) into `splits` contiguous ranges, about two blocks per SM in
+// all. A split stages only the window planes its dx range reads. With
+// splits > 1 each split stores its raw fp32 accumulators (no bias) with
+// plain stores into its own slice of a workspace (N, splits, X*Y*Z, cout_p),
+// and `finish_kernel` sums the slices in a fixed order, adds the bias once,
+// rounds once, stores y and reduces the sums from those fp32 values: y is
+// bitwise the same from run to run. With splits = 1 the fused epilogue above
+// stays, with no workspace and no second launch. Tried and dropped: a
+// double-buffered window (the next chunk's raw window by cp.async while the
+// current one multiplies, norm + act in place) gained 1-5 % at 64^3 and 32^3
+// and lost 10 % on a 16^3 split call: two blocks per SM already overlap
+// one's staging with the other's products. Not done yet (later work):
+// weights in shared memory, wgmma + TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,20 +111,104 @@ struct Brick {
   static constexpr int WY = TY + 2;             // window y rows
 };
 
+// The brick of output voxels that block `bx` of the grid's x axis owns.
+template <int BN>
+__device__ __forceinline__ void brick_origin(int bx, int Y, int Z, int& x0, int& y0, int& z0) {
+  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + Brick<BN>::TY - 1) / Brick<BN>::TY;
+  z0 = (bx % nzb) * kTZ;
+  y0 = (bx / nzb % nyb) * Brick<BN>::TY;
+  x0 = (bx / nzb / nyb) * kTX;
+}
+
+// The fused epilogue of an unsplit call: bias, y stored from registers
+// (voxels ldy apart), per-channel sum/sum^2 over live voxels reduced with
+// warp shuffles and shared memory `red` (kWarps, 2, BN), one atomicAdd per
+// channel and block. Lane holds rows g and g + 8 of each fragment, columns
+// 2t and 2t + 1 of each n8 tile. The block's sample n is xn = n * X rows
+// into y; sums points at its sums.
+template <int BN, typename OutT>
+__device__ __forceinline__ void fused_epilogue(float (&acc)[Brick<BN>::MW][Brick<BN>::NT][4],
+                                               const float* __restrict__ bias,
+                                               OutT* __restrict__ y, float* __restrict__ sums,
+                                               float* red, int X, int Y, int Z, int xn, int x0,
+                                               int y0, int z0, int nb, int cout_p, int ldy) {
+  using B = Brick<BN>;
+  constexpr int MW = B::MW, NT = B::NT, TY = B::TY;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = nb * BN + 2 * t;
+  float bv[NT][2], s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bv[j][e] = bias[col0 + j * 8 + e];
+      s1[j][e] = 0.f;
+      s2[j][e] = 0.f;
+    }
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    const int r = warp * MW + f;
+    const int gx = x0 + r / TY, gy = y0 + r % TY;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gz = z0 + g + 8 * h;
+      if (gx < X && gy < Y && gz < Z) {
+        OutT* dst = y + (((size_t)(xn + gx) * Y + gy) * Z + gz) * ldy + col0;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float v0 = acc[f][j][2 * h] + bv[j][0];
+          const float v1 = acc[f][j][2 * h + 1] + bv[j][1];
+          store2(dst + j * 8, v0, v1);
+          s1[j][0] += v0;
+          s1[j][1] += v1;
+          s2[j][0] += v0 * v0;
+          s2[j][1] += v1 * v1;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], m);
+        s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], m);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp * 2 * BN + j * 8 + 2 * t + e] = s1[j][e];
+        red[warp * 2 * BN + BN + j * 8 + 2 * t + e] = s2[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * BN) {  // tid = which * BN + column of the tile
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w * 2 * BN + tid];
+    atomicAdd(&sums[(tid / BN) * cout_p + nb * BN + tid % BN], v);
+  }
+}
+
 // SPLIT: the grid's z axis splits K and the epilogue stores raw partial
 // sums; without it the kernel walks all of K and runs the fused epilogue,
 // and compiles as if the split arguments were not there.
 template <int BN, int CK, typename OutT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 registers
-    conv_in_act_kernel(const __nv_bfloat16* __restrict__ x,  // (X, Y, Z, cin)
-                       const float* __restrict__ norm,       // (4, nchunks * CK)
+    conv_in_act_kernel(const __nv_bfloat16* __restrict__ x,  // (N, X, Y, Z, cin)
+                       const float* __restrict__ norm,       // (N, 4, nchunks * CK)
                        const uint4* __restrict__ wpk,        // B fragments, see boa_conv_in_act_fwd
                        const float* __restrict__ bias,       // (cout_p,)
-                       OutT* __restrict__ y,                 // (X, Y, Z, cout_p)
-                       float* __restrict__ sums,             // (2, cout_p)
-                       float* __restrict__ ws,               // (splits, X*Y*Z, cout_p)
-                       int X, int Y, int Z, int cin, int nchunks, int cout_p, int splits,
-                       int taps) {
+                       OutT* __restrict__ y,                 // (N, X, Y, Z) voxels, ldy apart
+                       float* __restrict__ sums,             // (N, 2, cout_p)
+                       float* __restrict__ ws,               // (N, splits, X*Y*Z, cout_p)
+                       int X, int Y, int Z, int cin, int nchunks, int cout_p, int ldy,
+                       int splits, int taps) {
   using B = Brick<BN>;
   constexpr int MW = B::MW, NT = B::NT, NB = B::NB, TY = B::TY, WY = B::WY;
   constexpr int CS = CK + 8;  // window voxel stride: (CS / 8) odd keeps ldmatrix conflict-free
@@ -123,17 +225,22 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
   __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(red + kWarps * 2 * BN);  // (kWX, WY, kWZ, CS)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + TY - 1) / TY;
-  const int z0 = (blockIdx.x % nzb) * kTZ;
-  const int y0 = (blockIdx.x / nzb % nyb) * TY;
-  const int x0 = (blockIdx.x / nzb / nyb) * kTX;
+  int x0, y0, z0;
+  brick_origin<BN>(blockIdx.x, Y, Z, x0, y0, z0);
   const int nb = blockIdx.y;
+  // sample n and split kz of this block: blockIdx.z = n * splits + kz. The
+  // sample enters the addresses as xn = n * X rows of x (one register where
+  // an offset pointer would hold two across the chunk loop).
+  const int n = SPLIT ? blockIdx.z / splits : blockIdx.z;
+  const int kz = SPLIT ? blockIdx.z - n * splits : 0;
+  const int xn = n * X;
+  norm += (size_t)n * 4 * cin_k;
   // this split's K units [ku0, ku1): unit u is chunk u / taps and, with
   // taps = 3, its dx tap plane u % 3
   if (!SPLIT) taps = 1;
   const int nunits = nchunks * taps;
-  const int ku0 = SPLIT ? blockIdx.z * nunits / splits : 0;
-  const int ku1 = SPLIT ? (blockIdx.z + 1) * nunits / splits : nunits;
+  const int ku0 = SPLIT ? kz * nunits / splits : 0;
+  const int ku1 = SPLIT ? (kz + 1) * nunits / splits : nunits;
 
   for (int i = tid; i < 4 * cin_k; i += kThreads) normp[i] = norm[i];
 
@@ -191,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
           ch[i] = cbase + (u % C8) * 8;
           live[i] = gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z && ch[i] < cin;
           if (live[i]) {
-            const __nv_bfloat16* src = x + (((size_t)gx * Y + gy) * Z + gz) * cin + ch[i];
+            const __nv_bfloat16* src = x + (((size_t)(xn + gx) * Y + gy) * Z + gz) * cin + ch[i];
             if (vec) {
               raw[i] = __ldg(reinterpret_cast<const uint4*>(src));
             } else {
@@ -245,11 +352,9 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
     }
   }
 
-  // --- epilogue. Lane holds rows g and g + 8 of each fragment, columns 2t
-  //     and 2t + 1 of each n8 tile
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = nb * BN + 2 * t;
   if (SPLIT) {  // raw partial sums into this split's workspace slice
+    const int g = lane >> 2, t = lane & 3;
+    const int col0 = nb * BN + 2 * t;
     float* wsk = ws + (size_t)blockIdx.z * X * Y * Z * cout_p;
 #pragma unroll
     for (int f = 0; f < MW; ++f) {
@@ -267,87 +372,136 @@ __global__ void __launch_bounds__(kThreads, 2)  // 2 blocks per SM: at most 128 
     }
     return;
   }
-  // one split: bias, store, per-channel sums over live voxels
-  float bv[NT][2], s1[NT][2], s2[NT][2];
+  fused_epilogue<BN, OutT>(acc, bias, y, sums + (size_t)blockIdx.z * 2 * cout_p, red, X, Y, Z,
+                           xn, x0, y0, z0, nb, cout_p, ldy);  // unsplit: n = blockIdx.z
+}
+
+// The input conv, cin = 1, with the 27 taps folded into K (see the note at
+// the head of the file). One 32-column N tile per block.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv1_kernel(const __nv_bfloat16* __restrict__ x,  // (N, X, Y, Z), one channel
+                 const float* __restrict__ norm,       // (N, 4, 1)
+                 const uint4* __restrict__ wpk,        // B fragments, see boa_conv_in_act_fwd
+                 const float* __restrict__ bias,       // (cout_p,)
+                 OutT* __restrict__ y,                 // (N, X, Y, Z) voxels, ldy apart
+                 float* __restrict__ sums,             // (N, 2, cout_p)
+                 int X, int Y, int Z, int cout_p, int ldy) {
+  using B = Brick<32>;
+  constexpr int MW = B::MW, NT = B::NT, NB = B::NB, TY = B::TY, WY = B::WY;
+  constexpr int WIN = kWX * WY * kWZ;                 // window voxels
+  constexpr int PER = (WIN + kThreads - 1) / kThreads;  // window voxels a thread stages
+  __shared__ uint16_t win[WIN];  // bf16 bits
+  __shared__ float red[kWarps * 2 * 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int x0, y0, z0;
+  brick_origin<32>(blockIdx.x, Y, Z, x0, y0, z0);
+  const int nb = blockIdx.y, n = blockIdx.z, xn = n * X;
+  const float mean = norm[4 * n], scale = norm[4 * n + 1], beta = norm[4 * n + 2],
+              slope = norm[4 * n + 3];
+
+  // --- stage the window with norm + act in fp32, zero outside the volume,
+  //     rounded to bf16; all of a thread's loads are issued first
+  float raw[PER];
+  bool live[PER];
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int i = 0; i < PER; ++i) {
+    const int v = tid + i * kThreads;
+    const int iz = v % kWZ, iy = v / kWZ % WY, ix = v / kWZ / WY;
+    const int gx = x0 - 1 + ix, gy = y0 - 1 + iy, gz = z0 - 1 + iz;
+    live[i] = v < WIN && gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z;
+    raw[i] = live[i] ? __bfloat162float(x[((size_t)(xn + gx) * Y + gy) * Z + gz]) : 0.f;
+  }
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bv[j][e] = bias[col0 + j * 8 + e];
-      s1[j][e] = 0.f;
-      s2[j][e] = 0.f;
+  for (int i = 0; i < PER; ++i) {
+    const int v = tid + i * kThreads;
+    if (v < WIN) {
+      float a = (raw[i] - mean) * scale + beta;
+      a = a >= 0.f ? a : a * slope;
+      win[v] = __bfloat16_as_ushort(__float2bfloat16_rn(live[i] ? a : 0.f));
     }
+  }
+
+  // B: the tile's two k16 steps, all in registers; column pair p of the
+  // whole cout at index (s * cout_p / 16 + p) * 32 + lane
+  const int g = lane >> 2, t = lane & 3;
+  uint4 b[2][NB];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int p = 0; p < NB; ++p) b[s][p] = __ldg(wpk + (s * (cout_p / 16) + nb * NB + p) * 32 + lane);
+  // window offset of tap k = 16s + 8hk + 2t + e, the k of A register
+  // (hr + 2hk) of k step s, element e; padded taps read tap 0
+  int off[2][2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 16 * s + 8 * hk + 2 * t + e;
+        off[s][hk][e] = k < 27 ? ((k / 9) * WY + (k / 3) % 3) * kWZ + k % 3 : 0;
+      }
+  __syncthreads();
+
+  float acc[MW][NT][4];
 #pragma unroll
   for (int f = 0; f < MW; ++f) {
     const int r = warp * MW + f;
-    const int gx = x0 + r / TY, gy = y0 + r % TY;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gz = z0 + g + 8 * h;
-      if (gx < X && gy < Y && gz < Z) {
-        OutT* dst = y + (((size_t)gx * Y + gy) * Z + gz) * cout_p + col0;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float v0 = acc[f][j][2 * h] + bv[j][0];
-          const float v1 = acc[f][j][2 * h + 1] + bv[j][1];
-          store2(dst + j * 8, v0, v1);
-          s1[j][0] += v0;
-          s1[j][1] += v1;
-          s2[j][0] += v0 * v0;
-          s2[j][1] += v1 * v1;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int m = 4; m < 32; m <<= 1) {
-        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], m);
-        s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], m);
-      }
-  if (g == 0) {
+    const uint16_t* wf = win + ((r / TY) * WY + r % TY) * kWZ + g;  // row g at tap 0
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[warp * 2 * BN + j * 8 + 2 * t + e] = s1[j][e];
-        red[warp * 2 * BN + BN + j * 8 + 2 * t + e] = s2[j][e];
-      }
-  }
-  __syncthreads();
-  if (tid < 2 * BN) {  // tid = which * BN + column of the tile
-    float v = 0.f;
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w * 2 * BN + tid];
-    atomicAdd(&sums[(tid / BN) * cout_p + nb * BN + tid % BN], v);
+    for (int s = 0; s < 2; ++s) {
+      uint32_t a[4];
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const uint16_t* p = wf + 8 * hr;
+          a[hr + 2 * hk] = (uint32_t)p[off[s][hk][0]] | ((uint32_t)p[off[s][hk][1]] << 16);
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t b0 = (j & 1) ? b[s][j / 2].z : b[s][j / 2].x;
+        const uint32_t b1 = (j & 1) ? b[s][j / 2].w : b[s][j / 2].y;
+        mma_bf16(acc[f][j], a, b0, b1);
+      }
+    }
   }
+  fused_epilogue<32, OutT>(acc, bias, y, sums + (size_t)n * 2 * cout_p, red, X, Y, Z, xn, x0, y0,
+                           z0, nb, cout_p, ldy);
 }
 
 // Finishing pass of a split call: y = sum of the splits' partial sums (in
 // split order) + bias, rounded once, and the per-channel sums of those fp32
-// values. A block owns kFinCols columns of kFinVox voxels; thread (r, q)
-// holds 4 columns of voxel rows r, r + kFinRows, ... It reads each
-// workspace value once and writes y once, so it is bound by the bytes.
+// values. A block owns kFinCols columns of kFinVox voxels of sample
+// blockIdx.z; thread (r, q) holds 4 columns of voxel rows r, r + kFinRows,
+// ... It reads each workspace value once and writes y once, so it is bound
+// by the bytes.
 constexpr int kFinCols = 32;
 constexpr int kFinRows = kThreads / (kFinCols / 4);
 constexpr int kFinVox = 4 * kFinRows;
 
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
-    finish_kernel(const float* __restrict__ ws,    // (splits, nvox, cout_p)
+    finish_kernel(const float* __restrict__ ws,    // (N, splits, nvox, cout_p)
                   const float* __restrict__ bias,  // (cout_p,)
-                  OutT* __restrict__ y,            // (nvox, cout_p)
-                  float* __restrict__ sums,        // (2, cout_p)
-                  int nvox, int cout_p, int splits) {
+                  OutT* __restrict__ y,            // (N, nvox) voxels, ldy apart
+                  float* __restrict__ sums,        // (N, 2, cout_p)
+                  int nvox, int cout_p, int ldy, int splits) {
   __shared__ float red[kWarps][2][kFinCols];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q = tid % (kFinCols / 4), r = tid / (kFinCols / 4);
   const int col = blockIdx.y * kFinCols + 4 * q;
-  const float4 bv = *reinterpret_cast<const float4*>(bias + col);
   const size_t slice = (size_t)nvox * cout_p;
+  ws += blockIdx.z * splits * slice;
+  y += blockIdx.z * (size_t)nvox * ldy;
+  sums += (size_t)blockIdx.z * 2 * cout_p;
+  const float4 bv = *reinterpret_cast<const float4*>(bias + col);
   float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
   const int v_end = min(nvox, (int)(blockIdx.x + 1) * kFinVox);
   for (int v = blockIdx.x * kFinVox + r; v < v_end; v += kFinRows) {
@@ -362,7 +516,7 @@ __global__ void __launch_bounds__(kThreads)
       a.w += p.w;
     }
     const float o[4] = {a.x + bv.x, a.y + bv.y, a.z + bv.z, a.w + bv.w};
-    OutT* dst = y + (size_t)v * cout_p + col;
+    OutT* dst = y + (size_t)v * ldy + col;
     store2(dst, o[0], o[1]);
     store2(dst + 2, o[2], o[3]);
 #pragma unroll
@@ -395,10 +549,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+int blocks_x(int X, int Y, int Z, int ty) {
+  return ((X + kTX - 1) / kTX) * ((Y + ty - 1) / ty) * ((Z + kTZ - 1) / kTZ);
+}
+
 template <int BN, int CK, typename OutT, bool SPLIT>
 int launch(const void* x, const void* norm, const void* w, const void* bias, void* y, void* sums,
-           void* ws, int X, int Y, int Z, int cin, int nchunks, int cout_p, int splits, int taps,
-           cudaStream_t st) {
+           void* ws, int N, int X, int Y, int Z, int cin, int nchunks, int cout_p, int ldy,
+           int splits, int taps, cudaStream_t st) {
   using B = Brick<BN>;
   const size_t bytes = (size_t)4 * nchunks * CK * 4 + (size_t)kWarps * 2 * BN * 4 +
                        (size_t)kWX * B::WY * kWZ * (CK + 8) * 2;
@@ -406,26 +564,38 @@ int launch(const void* x, const void* norm, const void* w, const void* bias, voi
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int nzb = (Z + kTZ - 1) / kTZ, nyb = (Y + B::TY - 1) / B::TY, nxb = (X + kTX - 1) / kTX;
-  dim3 grid(nxb * nyb * nzb, cout_p / BN, splits);
+  dim3 grid(blocks_x(X, Y, Z, B::TY), cout_p / BN, N * splits);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norm),
       static_cast<const uint4*>(w), static_cast<const float*>(bias), static_cast<OutT*>(y),
-      static_cast<float*>(sums), static_cast<float*>(ws), X, Y, Z, cin, nchunks, cout_p, splits,
-      taps);
+      static_cast<float*>(sums), static_cast<float*>(ws), X, Y, Z, cin, nchunks, cout_p, ldy,
+      splits, taps);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch_conv1(const void* x, const void* norm, const void* w, const void* bias, void* y,
+                 void* sums, int N, int X, int Y, int Z, int cout_p, int ldy, cudaStream_t st) {
+  dim3 grid(blocks_x(X, Y, Z, Brick<32>::TY), cout_p / 32, N);
+  conv1_kernel<OutT><<<grid, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norm),
+      static_cast<const uint4*>(w), static_cast<const float*>(bias), static_cast<OutT*>(y),
+      static_cast<float*>(sums), X, Y, Z, cout_p, ldy);
   return (int)cudaGetLastError();
 }
 
 template <typename OutT>
 int dispatch(const void* x, const void* norm, const void* w, const void* bias, void* y,
-             void* sums, void* ws, int X, int Y, int Z, int cin, int ck, int nchunks, int cout_p,
-             int bn, int splits, int taps, cudaStream_t st) {
-#define BOA_LAUNCH(BN, CK)                                                                 \
-  if (bn == BN && ck == CK)                                                                \
-    return splits > 1 ? launch<BN, CK, OutT, true>(x, norm, w, bias, y, sums, ws, X, Y, Z,  \
-                                                   cin, nchunks, cout_p, splits, taps, st) \
-                      : launch<BN, CK, OutT, false>(x, norm, w, bias, y, sums, ws, X, Y, Z, \
-                                                    cin, nchunks, cout_p, 1, 1, st);
+             void* sums, void* ws, int N, int X, int Y, int Z, int cin, int ck, int nchunks,
+             int cout_p, int bn, int ldy, int splits, int taps, cudaStream_t st) {
+  if (ck == 1) return launch_conv1<OutT>(x, norm, w, bias, y, sums, N, X, Y, Z, cout_p, ldy, st);
+#define BOA_LAUNCH(BN, CK)                                                                    \
+  if (bn == BN && ck == CK)                                                                   \
+    return splits > 1 ? launch<BN, CK, OutT, true>(x, norm, w, bias, y, sums, ws, N, X, Y, Z,  \
+                                                   cin, nchunks, cout_p, ldy, splits, taps,    \
+                                                   st)                                         \
+                      : launch<BN, CK, OutT, false>(x, norm, w, bias, y, sums, ws, N, X, Y, Z, \
+                                                    cin, nchunks, cout_p, ldy, 1, 1, st);
   BOA_LAUNCH(64, 32)
   BOA_LAUNCH(64, 16)
   BOA_LAUNCH(32, 32)
@@ -440,61 +610,74 @@ int dispatch(const void* x, const void* norm, const void* w, const void* bias, v
 // its launch (0 on success).
 //
 // boa_conv_in_act_fwd: the conv.
-//   x     (X, Y, Z, cin) bf16, contiguous, 16-byte aligned, any cin >= 1
-//   norm  (4, nchunks * ck) float32 rows [mean, inv_std * gamma, beta, slope];
-//         channels past cin need scale 0
+//   x     (N, X, Y, Z, cin) bf16, contiguous, 16-byte aligned, any cin >= 1
+//   norm  (N, 4, nchunks * ck) float32 rows [mean, inv_std * gamma, beta,
+//         slope] per sample; channels past cin need scale 0
 //   w     B fragments: for N tile nb < cout_p / bn, chunk c < nchunks,
 //         tap = (dx*3 + dy)*3 + dz, k step s < ck/16, column pair p < bn/16
 //         and lane = 4g + t, the 16 bytes at index
 //         ((((nb*nchunks + c)*27 + tap)*(ck/16) + s)*(bn/16) + p)*32 + lane
 //         hold the bf16 values w[tap, c*ck + s*16 + 8h + 2t + e,
-//         nb*bn + p*16 + 8q + g] in (q, h, e) order, zero past cin / cout
-//   bias  (cout_p,) float32;  y (X, Y, Z, cout_p) bf16 or float32 (out_f32);
-//   sums  (2, cout_p) float32, zeroed by the caller
-//   ck    16 or 32 channels per chunk;  bn 32 or 64 columns per N tile,
-//         cout_p a multiple of bn
+//         nb*bn + p*16 + 8q + g] in (q, h, e) order, zero past cin / cout.
+//         ck = 1 (cin = 1, taps folded into K): for k step s < 2, column
+//         pair p < cout_p/16 and lane, the 16 bytes at index
+//         (s*(cout_p/16) + p)*32 + lane hold w[k = s*16 + 8h + 2t + e,
+//         p*16 + 8q + g] in (q, h, e) order, k the tap, zero for k >= 27
+//   bias  (cout_p,) float32;  sums (N, 2, cout_p) float32, zeroed by the caller
+//   y     output voxel (n, x, y, z) at element ((n*X + x)*Y + y)*Z + z times
+//         ldy, its cout_p channels contiguous (ldy >= cout_p, even); bf16 or
+//         float32 (out_f32)
+//   ck    16 or 32 channels per chunk, or 1 for the tap-folded input conv
+//         (cin = 1, nchunks = 1, bn = 32, splits = 1);  bn 32 or 64 columns
+//         per N tile, cout_p a multiple of bn
 //   splits, taps: K is nchunks * taps units (taps 1: a unit is a chunk;
 //         taps 3: a chunk's dx tap plane), split into `splits` contiguous
-//         ranges, 1 <= splits <= nchunks * taps. splits = 1: y, sums are
-//         written and ws is not read. splits > 1: y, bias and sums are not
-//         touched; split k writes its raw sums to ws (splits, X*Y*Z,
-//         cout_p) float32 slice k, and boa_conv_in_act_finish completes
+//         ranges, 1 <= splits <= nchunks * taps, N * splits <= 65535.
+//         splits = 1: y, sums are written and ws is not read. splits > 1:
+//         y, bias and sums are not touched; split k of sample n writes its
+//         raw sums to ws (N, splits, X*Y*Z, cout_p) float32 slice (n, k),
+//         and boa_conv_in_act_finish completes
 extern "C" int boa_conv_in_act_fwd(const void* x, const void* norm, const void* w,
-                                   const void* bias, void* y, void* sums, void* ws, int X, int Y,
-                                   int Z, int cin, int ck, int nchunks, int cout_p, int bn,
-                                   int splits, int taps, int out_f32, void* stream) {
+                                   const void* bias, void* y, void* sums, void* ws, int N, int X,
+                                   int Y, int Z, int cin, int ck, int nchunks, int cout_p, int bn,
+                                   int ldy, int splits, int taps, int out_f32, void* stream) {
+  const bool fold = ck == 1;
   if (cin < 1 || nchunks * ck < cin || (nchunks - 1) * ck >= cin || bn <= 0 || cout_p % bn != 0 ||
-      X < 1 || Y < 1 || Z < 1 || (taps != 1 && taps != 3) || splits < 1 ||
-      splits > nchunks * taps || splits > 65535 || (splits > 1 && ws == nullptr))
+      N < 1 || X < 1 || Y < 1 || Z < 1 || ldy < cout_p || ldy % 2 != 0 ||
+      (taps != 1 && taps != 3) || splits < 1 || splits > nchunks * taps ||
+      (long long)N * splits > 65535 || (splits > 1 && ws == nullptr) ||
+      (fold && (bn != 32 || splits != 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? dispatch<float>(x, norm, w, bias, y, sums, ws, X, Y, Z, cin, ck, nchunks,
-                                   cout_p, bn, splits, taps, st)
-                 : dispatch<__nv_bfloat16>(x, norm, w, bias, y, sums, ws, X, Y, Z, cin, ck,
-                                           nchunks, cout_p, bn, splits, taps, st);
+  return out_f32 ? dispatch<float>(x, norm, w, bias, y, sums, ws, N, X, Y, Z, cin, ck, nchunks,
+                                   cout_p, bn, ldy, splits, taps, st)
+                 : dispatch<__nv_bfloat16>(x, norm, w, bias, y, sums, ws, N, X, Y, Z, cin, ck,
+                                           nchunks, cout_p, bn, ldy, splits, taps, st);
 }
 
 // boa_conv_in_act_finish: completes a call made with splits > 1.
-//   ws (splits, nvox, cout_p) float32 from boa_conv_in_act_fwd; bias
-//   (cout_p,) float32; y (nvox, cout_p) bf16 or float32 (out_f32); sums
-//   (2, cout_p) float32, zeroed by the caller; cout_p a multiple of 32
+//   ws (N, splits, nvox, cout_p) float32 from boa_conv_in_act_fwd; bias
+//   (cout_p,) float32; y voxel v of sample n at element (n*nvox + v)*ldy,
+//   bf16 or float32 (out_f32), ldy >= cout_p and even; sums (N, 2, cout_p)
+//   float32, zeroed by the caller; cout_p a multiple of 32
 extern "C" int boa_conv_in_act_finish(const void* ws, const void* bias, void* y, void* sums,
-                                      int nvox, int cout_p, int splits, int out_f32,
-                                      void* stream) {
-  if (nvox < 1 || cout_p < kFinCols || cout_p % kFinCols != 0 || splits < 1)
+                                      int N, int nvox, int cout_p, int ldy, int splits,
+                                      int out_f32, void* stream) {
+  if (N < 1 || N > 65535 || nvox < 1 || cout_p < kFinCols || cout_p % kFinCols != 0 ||
+      ldy < cout_p || ldy % 2 != 0 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((nvox + kFinVox - 1) / kFinVox, cout_p / kFinCols);
+  dim3 grid((nvox + kFinVox - 1) / kFinVox, cout_p / kFinCols, N);
   const float* w = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);
   if (out_f32)
     finish_kernel<float><<<grid, kThreads, 0, st>>>(w, b, static_cast<float*>(y),
-                                                    static_cast<float*>(sums), nvox, cout_p,
+                                                    static_cast<float*>(sums), nvox, cout_p, ldy,
                                                     splits);
   else
     finish_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(w, b,
                                                             static_cast<__nv_bfloat16*>(y),
                                                             static_cast<float*>(sums), nvox,
-                                                            cout_p, splits);
+                                                            cout_p, ldy, splits);
   return (int)cudaGetLastError();
 }

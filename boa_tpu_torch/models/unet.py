@@ -235,7 +235,7 @@ class PlainConvUNet(nn.Module):
 def _rowconv_eligible(cfg: ArchConfig, shape) -> bool:
     """Stage 0 and the last decoder stage are two 3x3x3 convs each, the
     first boundary is a 3x3x3 stride-2 conv, the first two stages are no
-    wider than the conv kernel's cout, and the tile has even extents. (The
+    wider than the stride-2 kernel's cout, and the tile has even extents. (The
     reference also asks for Y == 128 lanes and a batch of one, which were
     TPU constraints.)"""
     _, X, Y, Z, _ = shape
@@ -283,7 +283,9 @@ def _row_packs(model: PlainConvUNet) -> _RowPacks:
     cached = model.__dict__.get("_row_packs")
     if cached is not None and cached[0] == key:
         return cached[1]
-    c = [rc.pack_conv(_wcl(m), m.bias) for m in convs]
+    # stride 1 for conv3d_rows (K1), stride 2 for conv3d_rows_stride2 (K2)
+    c = [(rc.pack_conv if i == 2 else rc.pack_rows)(_wcl(m), m.bias)
+         for i, m in enumerate(convs)]
     # ConvTranspose3d weight (ci, co, kx, ky, kz) -> (kx, ky, kz, ci, co)
     up = rc.pack_transp(st.transp.weight.permute(2, 3, 4, 0, 1), st.transp.bias)
     packs = _RowPacks((c[0], c[1]), c[2], up, (c[3], c[4]))

@@ -8,7 +8,8 @@ contract, same bf16 rounding points); a CUDA tensor launches
 `csrc/conv_in_act.cu` or raises. Each call adds one to
 `LAUNCHES["conv3d_in_act"]`; a call that `_split_plan` splits over K also
 launches the kernel's finishing pass, counted in
-`LAUNCHES["conv3d_in_act_finish"]`.
+`LAUNCHES["conv3d_in_act_finish"]`. The same kernel serves the batched
+stride-1 `ops/rowconv.py:conv3d_rows` (K1) through `_launch`.
 
 The reference's `plan_packing` and `pack_weights` build the TPU's z-packed
 lane layout (p z-slices share the 128 lanes) with group-shift weight
@@ -19,7 +20,7 @@ the kernel's own fragment order.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -137,9 +138,14 @@ def _route(x: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _plan(cin: int, cout: int) -> tuple[int, int, int, int]:
+def _plan(cin: int, cout: int, fold: bool = False) -> tuple[int, int, int, int]:
     """(ck, nchunks, bn, cout_p): input channels per chunk, chunks, output
-    channels per N tile and cout padded to whole tiles."""
+    channels per N tile and cout padded to whole tiles. `fold` (cin = 1):
+    the kernel's tap-folded input conv, ck = 1 and 32-wide N tiles."""
+    if fold:
+        if cin != 1:
+            raise ValueError(f"the tap-folded conv takes cin 1, not {cin}")
+        return 1, 1, 32, _round_up(cout, 32)
     ck = 16 if cin <= 16 else 32
     bn = 32 if cout <= 32 else 64
     return ck, -(-cin // ck), bn, _round_up(cout, bn)
@@ -152,8 +158,13 @@ def _blocks(X: int, Y: int, Z: int, bn: int, cout_p: int) -> int:
     return -(-X // 4) * -(-Y // ty) * -(-Z // 16) * (cout_p // bn)
 
 
-def _split_plan(X: int, Y: int, Z: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
-    """(splits, taps) of a call on a card with `sms` SMs. K is nchunks *
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _split_plan(X: int, Y: int, Z: int, cin: int, cout: int, sms: int,
+                n: int = 1) -> tuple[int, int]:
+    """(splits, taps) of a call on `n` samples on a card with `sms` SMs. K is nchunks *
     taps units (taps 1: whole chunks; taps 3: a chunk's dx tap planes), cut
     into `splits` contiguous ranges of at most `per` units each. The aim is
     about two blocks per SM, as many as the kernel keeps resident; of the
@@ -162,11 +173,11 @@ def _split_plan(X: int, Y: int, Z: int, cin: int, cout: int, sms: int) -> tuple[
     third of the products). The fp32 workspace stays within
     SPLIT_WORKSPACE_BYTES."""
     _, nch, bn, cout_p = _plan(cin, cout)
-    want = max(1, 2 * sms // _blocks(X, Y, Z, bn, cout_p))
+    want = max(1, 2 * sms // (n * _blocks(X, Y, Z, bn, cout_p)))
     per1, per3 = -(-nch // want), -(-3 * nch // want)
     taps, per = (3, per3) if per3 < 3 * per1 else (1, per1)
     splits = -(-nch * taps // per)
-    while splits > 1 and splits * X * Y * Z * cout_p * 4 > SPLIT_WORKSPACE_BYTES:
+    while splits > 1 and n * splits * X * Y * Z * cout_p * 4 > SPLIT_WORKSPACE_BYTES:
         per += 1
         splits = -(-nch * taps // per)
     return splits, (taps if splits > 1 else 1)
@@ -177,24 +188,35 @@ def _split_units(k: int, splits: int, units: int) -> range:
     return range(k * units // splits, (k + 1) * units // splits)
 
 
-def pack_in_act_weights(w: torch.Tensor) -> torch.Tensor:
+def pack_in_act_weights(w: torch.Tensor, fold: bool = False) -> torch.Tensor:
     """(3, 3, 3, cin, cout) -> the K5 kernel's B fragments, bf16, zero padded
     to whole chunks and N tiles: for N tile nb, chunk c, tap
     (dx*3 + dy)*3 + dz, k step s, column pair p and lane 4g + t, the eight
     values w[tap, c*ck + s*16 + 8h + 2t + e, nb*bn + p*16 + 8q + g] in
     (q, h, e) order, i.e. the two m16n8k16 B registers of two n8 tiles, in
-    the order the lane holds them."""
+    the order the lane holds them. `fold` (cin = 1): K is the 27 taps padded
+    to 32, and for k step s < 2, column pair p of the whole cout and lane
+    4g + t the eight values w[k = s*16 + 8h + 2t + e, p*16 + 8q + g]."""
     cin, cout = w.shape[3], w.shape[4]
-    ck, nch, bn, cout_p = _plan(cin, cout)
+    ck, nch, bn, cout_p = _plan(cin, cout, fold)
+    if fold:
+        wq = F.pad(w.to(torch.bfloat16).reshape(27, cout), (0, cout_p - cout, 0, 5))
+        #                 s  h  t  e  p             q  g
+        wq = wq.reshape(2, 2, 4, 2, cout_p // 16, 2, 8)
+        return wq.permute(0, 4, 6, 2, 5, 1, 3).contiguous()
     wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, nch * ck - cin))
     #                  tap  c    s        h  t  e  nb            p        q  g
     wq = wq.reshape(27, nch, ck // 16, 2, 4, 2, cout_p // bn, bn // 16, 2, 8)
     return wq.permute(6, 1, 0, 2, 7, 9, 4, 8, 3, 5).contiguous()
 
 
-def unpack_in_act_weights(wp: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+def unpack_in_act_weights(wp: torch.Tensor, cin: int, cout: int,
+                          fold: bool = False) -> torch.Tensor:
     """Inverse of `pack_in_act_weights`: (3, 3, 3, cin, cout) bf16."""
-    ck, nch, bn, cout_p = _plan(cin, cout)
+    ck, nch, bn, cout_p = _plan(cin, cout, fold)
+    if fold:
+        w = wp.reshape(2, cout_p // 16, 8, 4, 2, 2, 2).permute(0, 5, 3, 6, 1, 4, 2)
+        return w.reshape(32, cout_p)[:27, :cout].reshape(3, 3, 3, 1, cout)
     w = wp.reshape(cout_p // bn, nch, 27, ck // 16, bn // 16, 8, 4, 2, 2, 2)
     w = w.permute(2, 1, 3, 8, 6, 9, 0, 4, 7, 5).reshape(27, nch * ck, cout_p)
     return w[:, :cin, :cout].reshape(3, 3, 3, cin, cout)
@@ -227,11 +249,14 @@ def conv3d_in_act_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
 
 
 def split_partials_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor, *,
-                         slope: float = 1.0, splits: int, taps: int) -> torch.Tensor:
+                         slope=1.0, splits: int, taps: int) -> torch.Tensor:
     """What the K splits of a split call store in the workspace, in plain
-    PyTorch: (splits, X, Y, Z, cout) float32 partial sums without bias.
-    Split k's conv keeps only the weights of its units' input channels and
-    dx tap planes; the rounding points are `conv3d_in_act_plain`'s."""
+    PyTorch: (splits, X, Y, Z, cout) float32 partial sums without bias for
+    x (X, Y, Z, cin), (N, splits, X, Y, Z, cout) for a batch x (N, X, Y, Z,
+    cin). Split k's conv keeps only the weights of its units' input channels
+    and dx tap planes; the rounding points are `conv3d_in_act_plain`'s."""
+    batched = x.dim() == 5
+    xb = x if batched else x[None]
     cin, cout = w.shape[3], w.shape[4]
     ck, nch, _, _ = _plan(cin, cout)
     parts = []
@@ -241,21 +266,65 @@ def split_partials_plain(x: torch.Tensor, norm: NormAct, w: torch.Tensor, *,
             c = u // taps
             keep[slice(None) if taps == 1 else u % 3, c * ck:(c + 1) * ck] = 1
         wk = w * keep[:, None, None, :cin, None]
-        parts.append(_conv_plain(x[None], norm, wk, None, slope, 1, torch.float32)[0][0])
-    return torch.stack(parts)
+        parts.append(_conv_plain(xb, norm, wk, None, slope, 1, torch.float32)[0])
+    parts = torch.stack(parts, dim=1)
+    return parts if batched else parts[0]
 
 
 def finish_plain(partials: torch.Tensor, b: torch.Tensor | None,
                  out_dtype=torch.bfloat16):
-    """The kernel's finishing pass in plain PyTorch: the (splits, ..., cout)
-    partial sums added in split order, plus the fp32 bias, rounded once to
-    out_dtype; the sums from the fp32 values. Returns (y, sums (2, cout))."""
-    y = partials[0]
-    for p in partials[1:]:
-        y = y + p
+    """The kernel's finishing pass in plain PyTorch: the (splits, X, Y, Z,
+    cout) partial sums added in split order, plus the fp32 bias, rounded
+    once to out_dtype; the sums from the fp32 values. Returns (y, sums
+    (2, cout)), or per sample (y (N, X, Y, Z, cout), sums (N, 2, cout)) for
+    (N, splits, X, Y, Z, cout) partials."""
+    batched = partials.dim() == 6
+    parts = partials if batched else partials[None]
+    y = parts[:, 0]
+    for k in range(1, parts.shape[1]):
+        y = y + parts[:, k]
     y = y + _bias(b, y.shape[-1], y.device)
-    dims = tuple(range(y.dim() - 1))
-    return y.to(out_dtype), torch.stack([y.sum(dims), (y * y).sum(dims)])
+    sums = torch.stack([y.sum((1, 2, 3)), (y * y).sum((1, 2, 3))], dim=1)
+    y = y.to(out_dtype)
+    return (y, sums) if batched else (y[0], sums[0])
+
+
+def _launch(name: str, counts: dict[str, int], x: torch.Tensor, rows: torch.Tensor,
+            wp: torch.Tensor, bias: torch.Tensor, plan: tuple[int, int, int, int],
+            y: torch.Tensor, ldy: int, sums: torch.Tensor, split: tuple[int, int],
+            out_dtype) -> Callable[[], None]:
+    """The launch of one prepared call of csrc/conv_in_act.cu. x (N, X, Y, Z,
+    cin) bf16, contiguous and 16-byte aligned; rows (N, 4, nchunks * ck);
+    wp and bias (cout_p,) packed for `plan` = (ck, nchunks, bn, cout_p); y
+    the buffer the kernel writes, its voxels ldy elements apart; sums (N, 2,
+    cout_p). `launch()` zeroes sums, runs the kernel and, for splits > 1, its
+    finishing pass, and counts them in counts[name] and
+    counts[name + "_finish"]."""
+    from boa_tpu_torch import _build
+
+    n, X, Y, Z, cin = x.shape
+    ck, nch, bn, cout_p = plan
+    splits, taps = split
+    ws = (torch.empty((n, splits, X * Y * Z, cout_p), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    lib = _build.lib("conv_in_act")
+    out_f32, stream = _out_f32(out_dtype), _stream()
+    args = (x.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), sums.data_ptr(), None if ws is None else ws.data_ptr(),
+            n, X, Y, Z, cin, ck, nch, cout_p, bn, ldy, splits, taps, out_f32, stream)
+    fin_args = (None if ws is None else ws.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                sums.data_ptr(), n, X * Y * Z, cout_p, ldy, splits, out_f32, stream)
+
+    def launch() -> None:
+        sums.zero_()
+        _build.check(lib.boa_conv_in_act_fwd(*args), name)
+        if splits > 1:
+            _build.check(lib.boa_conv_in_act_finish(*fin_args), name + " finish")
+            counts[name + "_finish"] += 1
+        counts[name] += 1
+    launch.tensors = (x, rows, wp, bias, y, sums, ws)
+    launch.split = split
+    return launch
 
 
 def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
@@ -271,12 +340,10 @@ def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     when split, its finishing pass), counts it and fills `(y, sums)`, which
     the wrapper would return. `split` = (splits, taps) replaces
     `_split_plan`'s choice, for tests; the wrapper never passes it."""
-    from boa_tpu_torch import _build
-
     cin, cout = _shapes(x, w, w_packed, cin, cout)
     if w_packed is None:
         w_packed = pack_in_act_weights(w.to(x.device))
-    ck, nch, bn, cout_p = _plan(cin, cout)
+    plan = ck, nch, bn, cout_p = _plan(cin, cout)
     if w_packed.dtype != torch.bfloat16 or w_packed.numel() != 27 * nch * ck * cout_p:
         raise ValueError("conv3d_in_act: w_packed does not fit cin/cout")
     dev = x.device
@@ -288,32 +355,13 @@ def prepare_launch(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
     bias = torch.zeros(cout_p, dtype=torch.float32, device=dev)
     bias[:cout] = _bias(b, cout, dev)
     rows = _norm_rows(norm, slope, 1, cin, nch * ck, dev)
-    y = torch.empty((X, Y, Z, cout_p), dtype=out_dtype, device=dev)
-    sums = torch.empty((2, cout_p), dtype=torch.float32, device=dev)
+    y = torch.empty((1, X, Y, Z, cout_p), dtype=out_dtype, device=dev)
+    sums = torch.empty((1, 2, cout_p), dtype=torch.float32, device=dev)
     if split is None:
-        split = _split_plan(X, Y, Z, cin, cout,
-                            torch.cuda.get_device_properties(dev).multi_processor_count)
-    splits, taps = split
-    ws = (torch.empty((splits, X * Y * Z, cout_p), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    lib = _build.lib("conv_in_act")
-    out_f32, stream = _out_f32(out_dtype), _stream()
-    args = (xq.data_ptr(), rows.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), sums.data_ptr(), None if ws is None else ws.data_ptr(),
-            X, Y, Z, cin, ck, nch, cout_p, bn, splits, taps, out_f32, stream)
-    fin_args = (None if ws is None else ws.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                sums.data_ptr(), X * Y * Z, cout_p, splits, out_f32, stream)
-
-    def launch() -> None:
-        sums.zero_()
-        _build.check(lib.boa_conv_in_act_fwd(*args), "conv3d_in_act")
-        if splits > 1:
-            _build.check(lib.boa_conv_in_act_finish(*fin_args), "conv3d_in_act finish")
-            LAUNCHES["conv3d_in_act_finish"] += 1
-        LAUNCHES["conv3d_in_act"] += 1
-    launch.tensors = (xq, rows, wp, bias, y, sums, ws)
-    launch.split = split
-    return launch, (y[..., :cout], sums[:, :cout])
+        split = _split_plan(X, Y, Z, cin, cout, _sms(dev))
+    launch = _launch("conv3d_in_act", LAUNCHES, xq[None], rows, wp, bias, plan, y, cout_p,
+                     sums, split, out_dtype)
+    return launch, (y[0, ..., :cout], sums[0, :, :cout])
 
 
 def conv3d_in_act(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,

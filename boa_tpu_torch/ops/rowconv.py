@@ -12,12 +12,16 @@ PyTorch version beside it (same contract, same bf16 rounding points); a CUDA
 tensor launches the hand-written CUDA kernel of `csrc/` or raises. Each
 launch adds one to `LAUNCHES[name]`.
 
-  conv3d_rows          csrc/rowconv.cu      (K1 and K4)
+  conv3d_rows          csrc/conv_in_act.cu  (K1 and K4, on K5's kernel)
   conv3d_rows_stride2  csrc/stride2conv.cu  (K2)
   transpconv2_rows     csrc/transpconv.cu   (K3)
 
-Weights are packed for their kernel by `pack_conv` / `pack_transp` into a
-`Packed` (B fragments plus the fp32 bias); a caller that runs a layer many
+`conv3d_rows` runs the batched form of the wide-channel conv kernel of
+`ops/pallas_conv.py`; a call too small to fill the card is split over K
+and also launches that kernel's finishing pass, counted in
+`LAUNCHES["conv3d_rows_finish"]`. Weights are packed for their wrapper's
+kernel by `pack_rows` / `pack_conv` / `pack_transp` into a `Packed` (B
+fragments plus the fp32 bias); a caller that runs a layer many
 times packs once and passes `w_packed`. `out=` takes a channels-last view
 whose voxels are evenly spaced (a channel slice of a wider buffer, such as
 the decoder concat), and the result is written there. `prepare_launch`
@@ -31,17 +35,18 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from boa_tpu_torch.ops import pallas_conv as pc
 from boa_tpu_torch.ops.pallas_conv import (  # noqa: F401
     NormAct, _bias, _conv_plain, _norm_rows, _out_f32, _round_up, _route,
     _stream, identity_normact, stats_from_sums)
 
 #: kernel launches per wrapper since the last `reset_launches()`
-LAUNCHES: dict[str, int] = {"conv3d_rows": 0, "conv3d_rows_stride2": 0,
-                            "transpconv2_rows": 0}
+LAUNCHES: dict[str, int] = {"conv3d_rows": 0, "conv3d_rows_finish": 0,
+                            "conv3d_rows_stride2": 0, "transpconv2_rows": 0}
 
 _CONV_COUT = (16, 32, 64)
 _TRANSP_COUT = (8, 16, 32, 64)
-#: the widest cout the conv kernel takes (the composite forward checks it)
+#: the widest cout the stride-2 kernel takes (the composite forward checks it)
 CONV_MAX_COUT = _CONV_COUT[-1]
 
 
@@ -58,10 +63,11 @@ def reset_launches() -> None:
 class Packed(NamedTuple):
     """One layer's weights in its kernel's order, made once per parameter."""
 
-    w: torch.Tensor     # B fragments, bf16 (see `_fragments`)
+    w: torch.Tensor     # B fragments, bf16, in the order of `kind`'s kernel
     bias: torch.Tensor  # (cout_p,) float32, zero past cout
     cin: int
     cout: int
+    kind: str           # the wrapper whose kernel reads them
 
 
 def _fragments(wk: torch.Tensor) -> torch.Tensor:
@@ -96,18 +102,46 @@ def pack_conv_weights(w: torch.Tensor, cin_k: int, cout_p: int) -> torch.Tensor:
     return _fragments(wq.reshape(27, cin_k, cout_p))
 
 
+def _conv_shape(what: str, w: torch.Tensor) -> tuple[int, int]:
+    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"{what}: weight {tuple(w.shape)} is not 3x3x3")
+    return int(w.shape[3]), int(w.shape[4])
+
+
+def _rows_plan(cin: int, cout: int) -> tuple[int, int, int, int]:
+    """(ck, nchunks, bn, cout_p) of a `conv3d_rows` call: K5's plan, with
+    the 27 taps folded into K for a 1-channel input."""
+    return pc._plan(cin, cout, fold=cin == 1)
+
+
+@torch.no_grad()
+def pack_rows(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
+    """A 3x3x3 conv (w (3, 3, 3, cin, cout), b (cout,) or None) packed for
+    `conv3d_rows`: the wide-channel kernel's fragments
+    (`pallas_conv.pack_in_act_weights`), taps folded into K when cin = 1."""
+    cin, cout = _conv_shape("pack_rows", w)
+    cout_p = _rows_plan(cin, cout)[3]
+    return Packed(pc.pack_in_act_weights(w, fold=cin == 1),
+                  _padded_bias(b, cout, cout_p, w.device), cin, cout, "conv3d_rows")
+
+
+def unpack_rows(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w (3, 3, 3, cin, cout) float32, b (cout,) float32) of `pack_rows`."""
+    w = pc.unpack_in_act_weights(p.w, p.cin, p.cout, fold=p.cin == 1)
+    return w.float(), p.bias[:p.cout]
+
+
 @torch.no_grad()
 def pack_conv(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
     """A 3x3x3 conv (w (3, 3, 3, cin, cout), b (cout,) or None) packed for
-    `conv3d_rows` and `conv3d_rows_stride2`."""
-    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
-        raise ValueError(f"pack_conv: weight {tuple(w.shape)} is not 3x3x3")
-    cin, cout = int(w.shape[3]), int(w.shape[4])
+    `conv3d_rows_stride2`: tap-major fragments (`pack_conv_weights`)."""
+    cin, cout = _conv_shape("pack_conv", w)
     cout_p = next((c for c in _CONV_COUT if c >= cout), None)
     if cout_p is None:
         raise ValueError(f"pack_conv: cout {cout} > {CONV_MAX_COUT}")
     return Packed(pack_conv_weights(w, _round_up(cin, 16), cout_p),
-                  _padded_bias(b, cout, cout_p, w.device), cin, cout)
+                  _padded_bias(b, cout, cout_p, w.device), cin, cout,
+                  "conv3d_rows_stride2")
 
 
 def unpack_conv(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
@@ -132,7 +166,8 @@ def pack_transp(w: torch.Tensor, b: torch.Tensor | None) -> Packed:
     cin_p = _round_up(cin, 16)
     wq = F.pad(w.to(torch.bfloat16), (0, cout_p - cout, 0, cin_p - cin))
     wk = wq.permute(0, 1, 3, 2, 4).reshape(4, cin_p, 2 * cout_p)
-    return Packed(_fragments(wk), _padded_bias(b, cout, cout_p, w.device), cin, cout)
+    return Packed(_fragments(wk), _padded_bias(b, cout, cout_p, w.device), cin, cout,
+                  "transpconv2_rows")
 
 
 def unpack_transp(p: Packed) -> tuple[torch.Tensor, torch.Tensor]:
@@ -155,28 +190,36 @@ def _into(out: torch.Tensor | None, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _plain_conv(x, norm, w, b, slope, stride, out_dtype, w_packed, out):
+def _kind(name: str, p: Packed) -> Packed:
+    if p.kind != name:
+        raise ValueError(f"{name}: weights packed for {p.kind}")
+    return p
+
+
+def _plain_conv(name, x, norm, w, b, slope, stride, out_dtype, w_packed, out):
     if w_packed is not None:
-        w, b = unpack_conv(w_packed)
+        unpack = unpack_rows if stride == 1 else unpack_conv
+        w, b = unpack(_kind(name, w_packed))
     y, sums = _conv_plain(x, norm, w, b, slope, stride, out_dtype)
     return _into(out, y), sums
 
 
 def conv3d_rows_plain(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16,
                       w_packed=None, out=None):
-    return _plain_conv(x, norm, w, b, slope, 1, out_dtype, w_packed, out)
+    return _plain_conv("conv3d_rows", x, norm, w, b, slope, 1, out_dtype, w_packed, out)
 
 
 def conv3d_rows_stride2_plain(x, norm, w, b, *, slope=1.0,
                               out_dtype=torch.bfloat16, w_packed=None):
-    return _plain_conv(x, norm, w, b, slope, 2, out_dtype, w_packed, None)
+    return _plain_conv("conv3d_rows_stride2", x, norm, w, b, slope, 2, out_dtype,
+                       w_packed, None)
 
 
 def transpconv2_rows_plain(x, w, b=None, *, out_dtype=torch.bfloat16,
                            w_packed=None, out=None):
     """fp32 products and bias, one rounding to `out_dtype` (as the kernel)."""
     if w_packed is not None:
-        w, b = unpack_transp(w_packed)
+        w, b = unpack_transp(_kind("transpconv2_rows", w_packed))
     n, X, Y, Z, _ = x.shape
     y = torch.einsum("nxyzi,abcio->nxaybzco", x.to(torch.bfloat16).float(),
                      w.to(torch.bfloat16).float())
@@ -248,6 +291,7 @@ def _packed(name, x, w, b, w_packed, taps, pack):
             raise ValueError(f"{name}: weight {None if w is None else tuple(w.shape)} "
                              f"does not fit input {tuple(x.shape)}")
         w_packed = pack(w.to(x.device), b)
+    _kind(name, w_packed)
     if w_packed.cin != x.shape[-1]:
         raise ValueError(f"{name}: packed weights for cin {w_packed.cin}, "
                          f"input {tuple(x.shape)}")
@@ -266,40 +310,62 @@ def _strided_input(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     return F.pad(x, (0, cin8 - x.shape[-1])).contiguous(), cin8
 
 
-def _conv_call(name, stride, x, norm, w, b, *, slope=1.0,
-               out_dtype=torch.bfloat16, w_packed=None, out=None):
+def _rows_call(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16,
+               w_packed=None, out=None, split=None):
+    """K1 on the wide-channel kernel: `pallas_conv._launch` with this call's
+    batch and output voxel stride. `split` = (splits, taps) replaces the
+    split plan, for tests; the wrapper never passes it."""
+    name = "conv3d_rows"
+    _checked_input(name, x)
+    dev = x.device
+    p = _packed(name, x, w, b, w_packed, 3, pack_rows)
+    cout = p.cout
+    n, X, Y, Z, cin = x.shape
+    plan = ck, nch, _, cout_p = _rows_plan(cin, cout)
+    rows = _norm_rows(norm, slope, n, cin, nch * ck, dev)
+    xq = x.contiguous()
+    if xq.data_ptr() % 16:
+        xq = xq.clone()
+    es = torch.finfo(out_dtype).bits // 8
+    y, ldy, back = _out_buffer(out, (n, X, Y, Z), cout, cout_p, out_dtype, dev, 2 * es)
+    sums = torch.empty((n, 2, cout_p), dtype=torch.float32, device=dev)
+    if split is None:
+        split = (1, 1) if ck == 1 else pc._split_plan(X, Y, Z, cin, cout, pc._sms(dev), n)
+    kernel = pc._launch(name, LAUNCHES, xq, rows, p.w, p.bias, plan, y, ldy, sums, split,
+                        out_dtype)
+    launch = kernel
+    if back is not None:
+        def launch() -> None:
+            kernel()
+            back.copy_(y[..., :cout])
+        launch.tensors, launch.split = kernel.tensors, kernel.split
+    return launch, (y[..., :cout] if back is None else back, sums[..., :cout])
+
+
+def _stride2_call(x, norm, w, b, *, slope=1.0, out_dtype=torch.bfloat16,
+                  w_packed=None):
     from boa_tpu_torch import _build
 
+    name = "conv3d_rows_stride2"
     _checked_input(name, x)
     dev = x.device
     p = _packed(name, x, w, b, w_packed, 3, pack_conv)
     cout, cout_p = p.cout, p.bias.numel()
     n, X, Y, Z, cin = x.shape
     cin_k = _round_up(cin, 16)   # channels past cin have scale 0: act 0
+    if cin_k > 64:
+        raise ValueError(f"{name}: cin {cin} > 64")
     rows = _norm_rows(norm, slope, n, cin, cin_k, dev)
     sums = torch.zeros((n, 2, cout_p), dtype=torch.float32, device=dev)
-    if stride == 1:
-        x = x.contiguous()
-        es = torch.finfo(out_dtype).bits // 8
-        y, ldy, back = _out_buffer(out, (n, X, Y, Z), cout, cout_p, out_dtype,
-                                   dev, 2 * es)
-        args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
-                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, cin, cin_k, cout_p,
-                ldy, _out_f32(out_dtype), _stream())
-        fn = _build.lib("rowconv").boa_rowconv_fwd
-    else:
-        if cin_k > 64:
-            raise ValueError(f"{name}: cin {cin} > 64")
-        x, ldx = _strided_input(x)
-        Xo, Yo, Zo = ((v + 1) // 2 for v in (X, Y, Z))
-        y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
-        back = None
-        args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
-                y.data_ptr(), sums.data_ptr(), n, X, Y, Z, x.shape[-1], cin_k,
-                ldx, cout_p, _out_f32(out_dtype), _stream())
-        fn = _build.lib("stride2conv").boa_stride2conv_fwd
-    launch = _launcher(name, fn, args, (x, rows, p, y, sums), back, y[..., :cout])
-    return launch, (y[..., :cout] if back is None else back, sums[..., :cout])
+    x, ldx = _strided_input(x)
+    Xo, Yo, Zo = ((v + 1) // 2 for v in (X, Y, Z))
+    y = torch.empty((n, Xo, Yo, Zo, cout_p), dtype=out_dtype, device=dev)
+    args = (x.data_ptr(), rows.data_ptr(), p.w.data_ptr(), p.bias.data_ptr(),
+            y.data_ptr(), sums.data_ptr(), n, X, Y, Z, x.shape[-1], cin_k,
+            ldx, cout_p, _out_f32(out_dtype), _stream())
+    fn = _build.lib("stride2conv").boa_stride2conv_fwd
+    launch = _launcher(name, fn, args, (x, rows, p, y, sums))
+    return launch, (y[..., :cout], sums[..., :cout])
 
 
 def _transp_call(x, w, b=None, *, out_dtype=torch.bfloat16, w_packed=None,
@@ -336,11 +402,13 @@ def prepare_launch(name: str, *args, **kw) -> tuple[Callable[[], None], object]:
     arguments: everything the wrapper does before its launch (packing unless
     `w_packed` is given, norm rows, output buffers) is done here, once;
     `launch()` runs the kernel alone (and counts it) and fills `result`,
-    which the wrapper would return."""
+    which the wrapper would return. `conv3d_rows` also takes `split` =
+    (splits, taps) in place of its split plan, and its launch zeroes the
+    sums and, when split, runs the finishing pass."""
     if name == "conv3d_rows":
-        return _conv_call(name, 1, *args, **kw)
+        return _rows_call(*args, **kw)
     if name == "conv3d_rows_stride2":
-        return _conv_call(name, 2, *args, **kw)
+        return _stride2_call(*args, **kw)
     if name == "transpconv2_rows":
         return _transp_call(*args, **kw)
     raise ValueError(f"unknown kernel {name}")
@@ -359,13 +427,13 @@ def conv3d_rows(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
 
     x: (N, X, Y, Z, cin) raw activations (`norm` carries x's own IN tail,
     identity for the network input); w: (3, 3, 3, cin, cout), or None with
-    `w_packed` from `pack_conv`; slope: scalar or (cin,) LeakyReLU slope of
+    `w_packed` from `pack_rows`; slope: scalar or (cin,) LeakyReLU slope of
     act; out: optional (N, X, Y, Z, cout) view to write y into. Returns
     (y (N, X, Y, Z, cout), sums (N, 2, cout) float32 = [sum y, sum y^2] from
     the fp32 values)."""
     if _route(x):
-        return _run(_conv_call("conv3d_rows", 1, x, norm, w, b, slope=slope,
-                               out_dtype=out_dtype, w_packed=w_packed, out=out))
+        return _run(_rows_call(x, norm, w, b, slope=slope, out_dtype=out_dtype,
+                               w_packed=w_packed, out=out))
     return conv3d_rows_plain(x, norm, w, b, slope=slope, out_dtype=out_dtype,
                              w_packed=w_packed, out=out)
 
@@ -376,11 +444,10 @@ def conv3d_rows_stride2(x: torch.Tensor, norm: NormAct, w: torch.Tensor | None,
                         w_packed: Packed | None = None):
     """`conv3d_rows` at stride 2, padding 1: out[o] = sum_d w[d] act(x)[2o+d-1]
     (torch Conv3d(stride=2, padding=1)); output extents ceil(n/2). x may be
-    a channel slice of a wider buffer."""
+    a channel slice of a wider buffer; `w_packed` comes from `pack_conv`."""
     if _route(x):
-        return _run(_conv_call("conv3d_rows_stride2", 2, x, norm, w, b,
-                               slope=slope, out_dtype=out_dtype,
-                               w_packed=w_packed))
+        return _run(_stride2_call(x, norm, w, b, slope=slope, out_dtype=out_dtype,
+                                  w_packed=w_packed))
     return conv3d_rows_stride2_plain(x, norm, w, b, slope=slope,
                                      out_dtype=out_dtype, w_packed=w_packed)
 

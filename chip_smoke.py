@@ -9,10 +9,11 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 2. kernels  - every kernel of the main path against its plain PyTorch version
               at the shapes a 128^3 total_fast tile gives it (bf16 outputs
               at rtol = atol = 2e-2, per-channel sums within 1e-2 of the
-              largest sum of squares). K2 reads and K3 (with its bias) writes
-              a channel slice of the (1, 128, 128, 128, 64) decoder concat,
-              as the main path runs them; the channels K3 does not own must
-              keep their bits. CUDA-event times of the kernel's launch alone
+              largest sum of squares). K1's four calls of a tile are each
+              printed; K1 (stage 0's second conv) and K3 (with its bias)
+              write and K2 reads a channel slice of the (1, 128, 128, 128,
+              64) decoder concat, as the main path runs them; the channels
+              a writer does not own must keep their bits. CUDA-event times of the kernel's launch alone
               (`kernel_ms`: weights packed and buffers allocated beforehand),
               the public wrapper (`wrapper_ms`), the plain version and the
               closest single PyTorch library call
@@ -35,7 +36,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               512x512x300 fast-total study (one warm-up, three timed runs)
               with per-stage spans, peak memory and the kernel launch
               counts, which must equal tiles x (4, 1, 1) on every run, with
-              no K5 launch
+              no K5 launch and no finishing launch
 
 With --profile, the fused and study phases each add one more run under
 torch.profiler (device busy share, kernels by device time). With
@@ -69,7 +70,7 @@ REPLACES = {
     "conv3d_in_act": "boa_tpu/ops/pallas_conv.py:100",
 }
 SOURCES = {
-    "conv3d_rows": "boa_tpu_torch/csrc/rowconv.cu",
+    "conv3d_rows": "boa_tpu_torch/csrc/conv_in_act.cu",
     "conv3d_rows_stride2": "boa_tpu_torch/csrc/stride2conv.cu",
     "transpconv2_rows": "boa_tpu_torch/csrc/transpconv.cu",
     "conv3d_in_act": "boa_tpu_torch/csrc/conv_in_act.cu",
@@ -163,14 +164,16 @@ def phase_kernels(torch, rc) -> list[dict]:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     # (kernel, n, spatial, cin, cout, slope kind, layout); the four
-    # conv3d_rows calls of one tile are 1->32, 32->32 (stage 0) and 64->32,
-    # 32->32 (decoder). Layout "concat" is the main path's: K2 reads and K3
-    # (with its bias) writes a 32-channel slice of the (1, 128, 128, 128, 64)
-    # decoder concat; "dense" cases take and give whole tensors.
+    # conv3d_rows calls of one tile (n = 1) are 1->32, 32->32 (stage 0) and
+    # 64->32, 32->32 (decoder). Layout "concat" is the main path's: K1
+    # (stage 0's second conv) and K3 (with its bias) write and K2 reads a
+    # 32-channel slice of the (1, 128, 128, 128, 64) decoder concat; "dense"
+    # cases take and give whole tensors.
     cases = [
         ("conv3d_rows", 1, 128, 1, 32, "none", "dense"),
-        ("conv3d_rows", 1, 128, 32, 32, "scalar", "dense"),
+        ("conv3d_rows", 1, 128, 32, 32, "scalar", "concat"),
         ("conv3d_rows", 1, 128, 64, 32, "vector", "dense"),
+        ("conv3d_rows", 1, 128, 32, 32, "scalar", "dense"),
         ("conv3d_rows", 2, 128, 1, 32, "none", "dense"),
         ("conv3d_rows", 2, 128, 32, 32, "scalar", "dense"),
         ("conv3d_rows", 2, 128, 64, 32, "vector", "dense"),
@@ -227,16 +230,20 @@ def phase_kernels(torch, rc) -> list[dict]:
                 slope = (torch.cat([torch.ones(cin // 2, device=dev),
                                     torch.full((cin - cin // 2,), 0.01, device=dev)])
                          if slope_kind == "vector" else 0.01)
-            xk = x
-            if layout == "concat":   # x lives in the concat's last cin channels
+            xk, kw = x, {}
+            if layout == "concat" and stride == 2:   # x: the concat's last cin channels
                 cat = torch.tensor(rng.normal(size=shape[:4] + (2 * cin,)),
                                    dtype=torch.bfloat16, device=dev)
                 cat[..., cin:] = x
                 xk = cat[..., cin:]
+            elif layout == "concat":   # y into the concat's last cout channels
+                cat = torch.full(shape[:4] + (2 * cout,), 7.0, dtype=torch.bfloat16,
+                                 device=dev)
+                kw["out"] = cat[..., cout:]
             fn = rc.conv3d_rows if stride == 1 else rc.conv3d_rows_stride2
             pfn = rc.conv3d_rows_plain if stride == 1 else rc.conv3d_rows_stride2_plain
-            launch, (y, sums) = rc.prepare_launch(name, xk, norm, w, b, slope=slope)
-            wrapper = lambda: fn(xk, norm, w, b, slope=slope)  # noqa: E731
+            launch, (y, sums) = rc.prepare_launch(name, xk, norm, w, b, slope=slope, **kw)
+            wrapper = lambda: fn(xk, norm, w, b, slope=slope, **kw)  # noqa: E731
             plain = lambda: pfn(xk, norm, w, b, slope=slope)  # noqa: E731
             wt = w.permute(4, 3, 0, 1, 2).contiguous()
             lib = lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, b,  # noqa: E731
@@ -248,6 +255,11 @@ def phase_kernels(torch, rc) -> list[dict]:
             rel_sums = float((sums - sr).abs().max() / sr[:, 1].abs().max())
             ok = bool(torch.allclose(y.float(), yr.float(), rtol=2e-2, atol=2e-2)) \
                 and rel_sums <= 1e-2
+            if "out" in kw:   # the concat's first cout channels are untouched
+                sentinel_ok = bool(y.data_ptr() == cat[..., cout:].data_ptr()) and bool(
+                    torch.equal(_bits(torch, cat[..., :cout]),
+                                _bits(torch, torch.full_like(cat[..., :cout], 7.0))))
+                ok = ok and sentinel_ok
             so = s // stride
             nbytes = (x.numel() * 2 + w.numel() * 2 + cout * 2 + n * 4 * cin * 4
                       + n * so ** 3 * cout * 2 + n * 2 * cout * 4)
@@ -255,7 +267,8 @@ def phase_kernels(torch, rc) -> list[dict]:
         torch.cuda.synchronize()
         bytes_ms, ops_ms = bound(nbytes, flops)
         case = {"name": name, "n": n, "spatial": s, "cin": cin, "cout": cout,
-                "slope": slope_kind, "layout": layout, "max_abs_err": err,
+                "slope": slope_kind, "layout": layout,
+                "splits": getattr(launch, "split", None), "max_abs_err": err,
                 "rel_err_sums": rel_sums, "sentinel_untouched": sentinel_ok,
                 "kernel_ms": time_ms(torch, launch, 20),
                 "wrapper_ms": time_ms(torch, wrapper, 10),
@@ -504,7 +517,8 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
         cpu = predict_image(img, "total", store, fast=True, device="cpu").seg.data
         res["small_agree"] = float((gpu == cpu).mean())
         res["small_launches"] = launches_small
-        assert gpu.shape == img.shape and min(launches_small[k] for k in rc.LAUNCHES) > 0
+        assert gpu.shape == img.shape and min(launches_small[k] for k in REPLACES
+                                              if k != "conv3d_in_act") > 0
         assert launches_small["conv3d_in_act"] == 0, launches_small
         assert res["small_agree"] > 0.99, res
 
@@ -524,9 +538,9 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
             dt = time.perf_counter() - t0
             launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
             tiles = spans["tiles"]
-            want = {"conv3d_rows": 4 * tiles, "conv3d_rows_stride2": tiles,
-                    "transpconv2_rows": tiles, "conv3d_in_act": 0,
-                    "conv3d_in_act_finish": 0}
+            want = {"conv3d_rows": 4 * tiles, "conv3d_rows_finish": 0,
+                    "conv3d_rows_stride2": tiles, "transpconv2_rows": tiles,
+                    "conv3d_in_act": 0, "conv3d_in_act_finish": 0}
             assert tiles > 0 and launches == want, (launches, want)
             seg = r.seg.data
             assert seg.shape == shape and seg.dtype == np.uint8
@@ -572,15 +586,17 @@ def _summary(cases, fused_cases, fused, study) -> list[dict]:
             summary.append(dict(_row(name, fused_cases, fused_cases, fused["launches"]),
                                 finish_launches=fused["finish_launches"]))
             continue
-        # per tile: the four conv3d_rows calls are 1->32, 32->32, 64->32,
-        # 32->32; K2 and K3 on the concat slice, as the main path runs them
+        # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
+        # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
+        # path runs them
         mine = [c for c in cases if c["name"] == name and c["n"] == 1]
-        if name == "conv3d_rows":
-            mine = mine + [c for c in mine if c["cin"] == 32]
-        else:
+        if name != "conv3d_rows":
             mine = [c for c in mine if c["layout"] == "concat"]
-        summary.append(_row(name, mine, [c for c in cases if c["name"] == name],
-                            study["launches"][name]))
+        row = _row(name, mine, [c for c in cases if c["name"] == name],
+                   study["launches"][name])
+        if name == "conv3d_rows":
+            row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
+        summary.append(row)
     return summary
 
 

@@ -178,21 +178,34 @@ def test_cuda_tensors_never_take_the_plain_route(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
 
+    from boa_tpu_torch.ops import pallas_conv as pc
+
     for name in ("conv3d_rows_plain", "conv3d_rows_stride2_plain",
                  "transpconv2_rows_plain", "_plain_conv", "_conv_plain"):
         monkeypatch.setattr(rc, name, refuse)
+    for name in ("conv3d_in_act_plain", "_conv_plain", "split_partials_plain",
+                 "finish_plain"):
+        monkeypatch.setattr(pc, name, refuse)
     x = torch.randn(1, 6, 5, 7, 32, device=cuda).to(torch.bfloat16)
     w3 = torch.randn(3, 3, 3, 32, 64, device=cuda) * 0.1
     w2 = torch.randn(2, 2, 2, 32, 16, device=cuda) * 0.1
     before = dict(rc.LAUNCHES)
+    y1, _ = rc.conv3d_rows(x, rc.identity_normact(32, cuda), w3, None)
+    y1p, _ = rc.conv3d_rows(x, rc.identity_normact(32, cuda), None, None,
+                            w_packed=rc.pack_rows(w3, None))
     y, _ = rc.conv3d_rows_stride2(x, rc.identity_normact(32, cuda), w3, None)
     up = rc.transpconv2_rows(x, w2, torch.zeros(16, device=cuda))
     packed = rc.pack_transp(w2, None)
     up2 = rc.transpconv2_rows(x, None, w_packed=packed)
     torch.cuda.synchronize()
+    assert rc.LAUNCHES["conv3d_rows"] == before["conv3d_rows"] + 2
     assert rc.LAUNCHES["conv3d_rows_stride2"] == before["conv3d_rows_stride2"] + 1
     assert rc.LAUNCHES["transpconv2_rows"] == before["transpconv2_rows"] + 2
+    assert y1.shape == (1, 6, 5, 7, 64) and torch.equal(y1, y1p)
     assert y.shape == (1, 3, 3, 4, 64) and torch.equal(up, up2)
+    with pytest.raises(ValueError):   # weights packed for the stride-2 kernel
+        rc.conv3d_rows(x, rc.identity_normact(32, cuda), None, None,
+                       w_packed=rc.pack_conv(w3, None))
     with pytest.raises(ValueError):
         rc.conv3d_rows_stride2(torch.zeros(1, 4, 4, 4, 80, device=cuda, dtype=torch.bfloat16),
                                rc.identity_normact(80, cuda),
@@ -213,8 +226,9 @@ def test_composite_forward_on_the_kernels_matches_plain(cuda):
     with torch.no_grad():
         rc.reset_launches()
         got = model(x, rc.KERNELS).float()
-        assert dict(rc.LAUNCHES) == {"conv3d_rows": 4, "conv3d_rows_stride2": 1,
-                                     "transpconv2_rows": 1}
+        kernels = ("conv3d_rows", "conv3d_rows_stride2", "transpconv2_rows")
+        assert {k: rc.LAUNCHES[k] for k in kernels} == {
+            "conv3d_rows": 4, "conv3d_rows_stride2": 1, "transpconv2_rows": 1}
         ref = model(x, rc.PLAIN).float()
     assert got.shape == (2, 24, 20, 32, 5) and bool(torch.isfinite(got).all())
     assert float((got.argmax(-1) == ref.argmax(-1)).float().mean()) > 0.99
@@ -233,6 +247,126 @@ def test_main_path_shapes(cuda):
         yr, sr = rc.conv3d_rows_plain(x, norm, w, None, slope=0.01)
         torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
         assert _rel_sums(s, sr) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# K1 on the wide-channel kernel (csrc/conv_in_act.cu): batch, output voxel
+# stride, split over K, the tap-folded input conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cout", [16, 32, 64])
+@pytest.mark.parametrize("cin", [1, 16, 32, 40, 64])
+def test_rows_kernel_matches_plain_at_a_batch_of_two(cuda, cin, cout):
+    """conv3d_rows at N = 2 with per-sample norms, bf16 and fp32 out; cin 1
+    takes the tap-folded conv, cout 16 pads to one 32-wide N tile."""
+    rng = np.random.default_rng(cin * 100 + cout)
+    n, shape = 2, (9, 10, 21)
+    x = torch.tensor(rng.normal(size=(n,) + shape + (cin,)) * 2 + 0.3, dtype=torch.bfloat16,
+                     device=cuda)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) / np.sqrt(27 * cin),
+                     dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.float32, device=cuda)
+    norm = _norm(rng, n, cin, cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = rc.LAUNCHES["conv3d_rows"]
+        y, s = rc.conv3d_rows(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES["conv3d_rows"] == before + 1
+        yr, sr = rc.conv3d_rows_plain(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        assert y.shape == yr.shape == (n,) + shape + (cout,) and y.dtype == out_dtype
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+        assert s.shape == (n, 2, cout) and _rel_sums(s, sr) < 1e-2
+
+
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("cin,cout,lo", [(32, 32, 32), (1, 32, 32), (64, 32, 0), (24, 16, 16)])
+def test_rows_kernel_into_the_concat_slice(cuda, cin, cout, lo, out_f32):
+    """conv3d_rows at N = 2 into channels [lo, lo + cout) of a 64-wide
+    buffer (voxel stride 64, as the decoder concat): the slice matches the
+    plain version and the other channels keep their bits. cout 16 is
+    padded to a 32-wide tile, so it goes through a buffer and a copy."""
+    rng = np.random.default_rng(cin + cout + lo)
+    n, shape = 2, (7, 9, 20)
+    x = torch.tensor(rng.normal(size=(n,) + shape + (cin,)), dtype=torch.bfloat16, device=cuda)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) * 0.2, dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.float32, device=cuda)
+    norm = _norm(rng, n, cin, cuda)
+    out_dtype = torch.float32 if out_f32 else torch.bfloat16
+    cat = torch.tensor(rng.normal(size=(n,) + shape + (64,)), dtype=out_dtype, device=cuda)
+    keep = torch.cat([cat[..., :lo], cat[..., lo + cout:]], -1)
+    y, s = rc.conv3d_rows(x, norm, w, b, slope=0.01, out_dtype=out_dtype,
+                          out=cat[..., lo:lo + cout])
+    torch.cuda.synchronize()
+    yr, sr = rc.conv3d_rows_plain(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+    assert y.data_ptr() == cat[..., lo:].data_ptr()
+    torch.testing.assert_close(cat[..., lo:lo + cout].float(), yr.float(), rtol=2e-2, atol=2e-2)
+    bits = torch.int32 if out_f32 else torch.int16
+    rest = torch.cat([cat[..., :lo], cat[..., lo + cout:]], -1)
+    assert torch.equal(rest.view(bits), keep.view(bits)) and _rel_sums(s, sr) < 1e-2
+
+
+@pytest.mark.parametrize("split", ["one", "two", "most"])
+@pytest.mark.parametrize("cin", [32, 64])
+def test_rows_split_kernel_is_repeatable_at_a_batch_of_two(cuda, cin, split):
+    """conv3d_rows at N = 2 with the split over K forced to 1, 2 and the
+    most (one split per dx tap plane), bf16 and fp32 out, into the concat's
+    last 32 channels: within the bars of the plain version, y bitwise equal
+    over two launches, one finishing pass counted per split launch."""
+    rng = np.random.default_rng(cin)
+    n, shape, cout = 2, (8, 12, 16), 32
+    x = torch.tensor(rng.normal(size=(n,) + shape + (cin,)) * 2 + 0.3, dtype=torch.bfloat16,
+                     device=cuda)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)) / np.sqrt(27 * cin),
+                     dtype=torch.float32, device=cuda)
+    b = torch.tensor(rng.normal(size=cout) * 0.1, dtype=torch.float32, device=cuda)
+    norm = _norm(rng, n, cin, cuda)
+    nch = cin // 32
+    plan = {"one": (1, 1), "two": (2, 1) if nch > 1 else (2, 3), "most": (3 * nch, 3)}[split]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        cat = torch.zeros((n,) + shape + (64,), dtype=out_dtype, device=cuda)
+        launch, (y, sums) = rc.prepare_launch("conv3d_rows", x, norm, w, b, slope=0.01,
+                                              out_dtype=out_dtype, out=cat[..., 32:],
+                                              split=plan)
+        assert launch.split == plan and y.data_ptr() == cat[..., 32:].data_ptr()
+        before = dict(rc.LAUNCHES)
+        launch()
+        torch.cuda.synchronize()
+        first = cat.clone()
+        launch()
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES["conv3d_rows"] == before["conv3d_rows"] + 2
+        assert (rc.LAUNCHES["conv3d_rows_finish"]
+                == before["conv3d_rows_finish"] + (2 if plan[0] > 1 else 0))
+        bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+        if plan[0] > 1:
+            assert torch.equal(first.view(bits), cat.view(bits))
+        assert bool((cat[..., :32] == 0).all())
+        yr, sr = rc.conv3d_rows_plain(x, norm, w, b, slope=0.01, out_dtype=out_dtype)
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+        assert sums.shape == (n, 2, cout) and _rel_sums(sums, sr) < 1e-2
+
+
+def test_rows_wrapper_splits_as_planned(cuda):
+    """The public call takes the split plan for the card and batch it runs
+    on: a small call at N = 2 splits, a 128^3 call does not, and the input
+    conv (tap-folded) never does."""
+    from boa_tpu_torch.ops import pallas_conv as pc
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, s, cin, want_split in ((2, 16, 64, True), (1, 128, 32, False), (2, 16, 1, False)):
+        x = torch.randn(n, s, s, s, cin, device=cuda).to(torch.bfloat16)
+        w = torch.randn(3, 3, 3, cin, 32, device=cuda) * 0.05
+        if cin > 1:
+            assert (pc._split_plan(s, s, s, cin, 32, sms, n)[0] > 1) == want_split
+        before = dict(rc.LAUNCHES)
+        y, _ = rc.conv3d_rows(x, rc.identity_normact(cin, cuda), w, None)
+        torch.cuda.synchronize()
+        assert y.shape == (n, s, s, s, 32)
+        assert rc.LAUNCHES["conv3d_rows"] == before["conv3d_rows"] + 1
+        assert (rc.LAUNCHES["conv3d_rows_finish"]
+                == before["conv3d_rows_finish"] + int(want_split))
 
 
 # ---------------------------------------------------------------------------

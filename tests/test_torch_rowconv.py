@@ -181,8 +181,9 @@ def test_conv3d_rows_plain_into_an_out_slice():
 
 
 def test_packed_weights_match_packing_per_call():
-    """The wrappers give the same result with `w_packed` as with w and b, and
-    the packs unpack to the bf16-rounded weights."""
+    """The wrappers give the same result with `w_packed` as with w and b,
+    refuse weights packed for another kernel, and the packs unpack to the
+    bf16-rounded weights."""
     rng = np.random.default_rng(18)
     x = torch.tensor(rng.normal(size=(1, 6, 4, 10, 24)), dtype=torch.float32)
     w3 = torch.tensor(rng.normal(size=(3, 3, 3, 24, 40)) * 0.2, dtype=torch.float32)
@@ -190,14 +191,17 @@ def test_packed_weights_match_packing_per_call():
     b3 = torch.tensor(rng.normal(size=40), dtype=torch.float32)
     b2 = torch.tensor(rng.normal(size=12), dtype=torch.float32)
     norm = rc.identity_normact(24)
-    p3, p2 = rc.pack_conv(w3, b3), rc.pack_transp(w2, b2)
-    for fn in (rc.conv3d_rows, rc.conv3d_rows_stride2):
+    p1, p3, p2 = rc.pack_rows(w3, b3), rc.pack_conv(w3, b3), rc.pack_transp(w2, b2)
+    for fn, p, other in ((rc.conv3d_rows, p1, p3), (rc.conv3d_rows_stride2, p3, p1)):
         y, s = fn(x, norm, w3, b3, slope=0.01)
-        yp, sp = fn(x, norm, None, None, slope=0.01, w_packed=p3)
+        yp, sp = fn(x, norm, None, None, slope=0.01, w_packed=p)
         assert torch.equal(y, yp) and torch.equal(s, sp)
+        with pytest.raises(ValueError):   # packed for the other kernel
+            fn(x, norm, None, None, slope=0.01, w_packed=other)
     assert torch.equal(rc.transpconv2_rows(x, w2, b2),
                        rc.transpconv2_rows(x, None, w_packed=p2))
-    for p, w, b, unpack in ((p3, w3, b3, rc.unpack_conv), (p2, w2, b2, rc.unpack_transp)):
+    for p, w, b, unpack in ((p1, w3, b3, rc.unpack_rows), (p3, w3, b3, rc.unpack_conv),
+                            (p2, w2, b2, rc.unpack_transp)):
         wu, bu = unpack(p)
         assert torch.equal(wu, w.to(torch.bfloat16).float()) and torch.equal(bu, b)
 
@@ -280,3 +284,163 @@ def test_stats_from_sums_matches_reference():
     mt, it = rc.stats_from_sums(torch.from_numpy(sums.astype(np.float32)), 7, 1e-5)
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-6)
     np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K1 on the wide-channel kernel: its packing, its batched split contract and
+# the tap-folded input conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cout", [16, 32, 64])
+@pytest.mark.parametrize("cin", [1, 32, 64])
+def test_rows_weight_pack_is_the_fragment_order(cin, cout):
+    """`pack_rows` at K1's layers: for cin > 1 the wide-channel kernel's
+    order (N tile, chunk, tap, k step, column pair, lane), for cin = 1 the
+    27 taps folded into K = 32 (k step, column pair of the whole cout,
+    lane); lane 4g + t holds B[k][n] for k = 2t + e (+8) and n = g of two n8
+    tiles. Zero past cin, cout and the 27 taps; `unpack_rows` inverts it."""
+    from boa_tpu_torch.ops import pallas_conv as pc
+
+    gen = torch.Generator().manual_seed(cin + cout)
+    w = torch.randn(3, 3, 3, cin, cout, generator=gen)
+    b = torch.randn(cout, generator=gen)
+    p = rc.pack_rows(w, b)
+    ck, nch, bn, cout_p = pc._plan(cin, cout, fold=cin == 1)
+    assert cout_p == (32 if cout <= 32 else 64) and bn == (32 if cin == 1 or cout <= 32 else 64)
+    wb = w.to(torch.bfloat16).float()
+    if cin == 1:
+        assert ck == 1 and p.w.numel() == 32 * cout_p
+        pk = p.w.float().reshape(2, cout_p // 16, 32, 8)
+        got = torch.empty(32, cout_p)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for j in range(8):
+                q, h, e = j // 4, (j // 2) % 2, j % 2
+                for s in range(2):
+                    for pp in range(cout_p // 16):
+                        got[s * 16 + 8 * h + 2 * t + e, pp * 16 + 8 * q + g] = pk[s, pp, lane, j]
+        want = torch.zeros(32, cout_p)
+        want[:27, :cout] = wb.reshape(27, cout)
+    else:
+        assert ck == 32 and nch == cin // 32
+        pk = p.w.float().reshape(cout_p // bn, nch, 27, 2, bn // 16, 32, 8)
+        got = torch.empty(27, nch * ck, cout_p)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for j in range(8):
+                q, h, e = j // 4, (j // 2) % 2, j % 2
+                for nb in range(cout_p // bn):
+                    for c in range(nch):
+                        for s in range(2):
+                            for pp in range(bn // 16):
+                                got[:, c * ck + s * 16 + 8 * h + 2 * t + e,
+                                    nb * bn + pp * 16 + 8 * q + g] = pk[nb, c, :, s, pp, lane, j]
+        want = torch.zeros(27, cin, cout_p)
+        want[:, :, :cout] = wb.reshape(27, cin, cout)
+    assert torch.equal(got, want)
+    assert p.kind == "conv3d_rows" and torch.equal(p.bias[:cout], b) and not p.bias[cout:].any()
+    wu, bu = rc.unpack_rows(p)
+    assert torch.equal(wu, wb) and torch.equal(bu, b)
+
+
+def _batch_reference(x, w, b, nds, slope):
+    """The reference `conv3d_rows` (interpret mode) per sample of x (N, X,
+    Y, Z, cin): (y (N, X, Y, Z, cout), sums (N, 2, cout))."""
+    ys, ss = [], []
+    for xi, nd in zip(x, nds):
+        nj, _ = _norms(nd, slope)
+        yj, sj = jrc.conv3d_rows(jnp.asarray(_to_rows(xi)), nj,
+                                 jnp.asarray(np.transpose(w, (2, 0, 1, 3, 4))),
+                                 jnp.asarray(b), slope=slope, out_dtype=jnp.float32,
+                                 interpret=True, bx=8)
+        ys.append(_from_rows(np.asarray(yj)))
+        ss.append(np.asarray(sj))
+    return np.stack(ys), np.stack(ss)
+
+
+def _batch_inputs(seed, n, cin, cout, shape=(8, 128, 4)):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, *shape, cin)) * 2.0 + 0.3).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, cin, cout)) * 0.2).astype(np.float32)
+    b = (rng.normal(size=cout) * 0.1).astype(np.float32)
+    nds = [_norm_np(rng, cin) for _ in range(n)]
+    return x, w, b, nds
+
+
+def _batch_norm(nds, slope):
+    """Per-sample NormAct (N, cin) fields for the port."""
+    return rc.NormAct(**{k: torch.tensor(np.stack([nd[k] for nd in nds]), dtype=torch.float32)
+                         for k in nds[0]}, slope=slope)
+
+
+@pytest.mark.parametrize("split", ["one", "two", "chunks", "planes"])
+def test_rows_split_partials_at_a_batch_of_two_match_reference(split):
+    """K1's split contract on the CPU: the plain split partials of a batch
+    of two (N, splits, X, Y, Z, cout), summed by the plain finishing pass
+    and placed in the last 32 channels of a 64-wide buffer (voxel stride
+    64 > cout, as the kernel's finishing pass stores them), match the
+    reference per sample at its bars. cin 40 is a whole chunk and a ragged
+    one."""
+    from boa_tpu_torch.ops import pallas_conv as pc
+
+    n, cin, cout = 2, 40, 32
+    x, w, b, nds = _batch_inputs(40, n, cin, cout)
+    nch = pc._plan(cin, cout)[1]
+    splits, taps = {"one": (1, 1), "two": (2, 1), "chunks": (nch, 1),
+                    "planes": (3 * nch, 3)}[split]
+    norm = _batch_norm(nds, 0.01)
+    parts = pc.split_partials_plain(torch.from_numpy(x), norm, torch.from_numpy(w),
+                                    slope=0.01, splits=splits, taps=taps)
+    assert parts.shape == (n, splits, *x.shape[1:4], cout)
+    cat = torch.full((n, *x.shape[1:4], 64), 3.0, dtype=torch.float32)
+    y, s = pc.finish_plain(parts, torch.from_numpy(b), torch.float32)
+    cat[..., 32:] = y   # the kernel's finishing pass stores with voxel stride 64
+    assert y.shape == (n, *x.shape[1:4], cout) and s.shape == (n, 2, cout)
+    assert bool((cat[..., :32] == 3.0).all())
+    yj, sj = _batch_reference(x, w, b, nds, 0.01)
+    for i in range(n):
+        _check(cat[i, ..., 32:].numpy(), s[i].numpy(), yj[i], sj[i])
+
+
+def test_rows_wrapper_at_a_batch_of_two_matches_reference():
+    """The public `conv3d_rows` on the CPU at N = 2 with per-sample norms
+    and a per-channel slope, into a channel slice, against the reference."""
+    n, cin, cout = 2, 24, 16
+    x, w, b, nds = _batch_inputs(24, n, cin, cout)
+    slope = np.concatenate([np.ones(cin // 2), np.full(cin - cin // 2, 0.01)])
+    cat = torch.zeros((n, *x.shape[1:4], 48), dtype=torch.float32)
+    y, s = rc.conv3d_rows(torch.from_numpy(x), _batch_norm(nds, 1.0), None, None,
+                          slope=torch.tensor(slope, dtype=torch.float32),
+                          out_dtype=torch.float32,
+                          w_packed=rc.pack_rows(torch.from_numpy(w), torch.from_numpy(b)),
+                          out=cat[..., 16:32])
+    assert y.data_ptr() == cat[..., 16:].data_ptr() and s.shape == (n, 2, cout)
+    assert not cat[..., :16].any() and not cat[..., 32:].any()
+    ys, ss = [], []
+    for xi, nd in zip(x, nds):
+        nj, _ = _norms(nd, 1.0)
+        yj, sj = jrc.conv3d_rows(jnp.asarray(_to_rows(xi)), nj,
+                                 jnp.asarray(np.transpose(w, (2, 0, 1, 3, 4))),
+                                 jnp.asarray(b), slope=jnp.asarray(slope, jnp.float32),
+                                 out_dtype=jnp.float32, interpret=True, bx=8)
+        ys.append(_from_rows(np.asarray(yj)))
+        ss.append(np.asarray(sj))
+    for i in range(n):
+        _check(cat[i, ..., 16:32].numpy(), s[i].numpy(), ys[i], ss[i])
+
+
+@pytest.mark.parametrize("cout", [16, 32])
+def test_folded_input_conv_matches_reference(cout):
+    """cin = 1: the tap-folded packing, unpacked by the plain version, gives
+    the reference's conv at its bars, at N = 2 with per-sample norms."""
+    n = 2
+    x, w, b, nds = _batch_inputs(cout, n, 1, cout)
+    p = rc.pack_rows(torch.from_numpy(w), torch.from_numpy(b))
+    assert p.w.numel() == 32 * 32   # 27 taps padded to 32, one 32-wide N tile
+    y, s = rc.conv3d_rows_plain(torch.from_numpy(x), _batch_norm(nds, 0.01), None, None,
+                                slope=0.01, out_dtype=torch.float32, w_packed=p)
+    yj, sj = _batch_reference(x, w, b, nds, 0.01)
+    assert y.shape == (n, *x.shape[1:4], cout) and s.shape == (n, 2, cout)
+    for i in range(n):
+        _check(y[i].numpy(), s[i].numpy(), yj[i], sj[i])

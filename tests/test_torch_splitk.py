@@ -114,3 +114,19 @@ def test_finish_plain_adds_the_bias_once_and_squares_the_sum():
     assert torch.allclose(s[0], 60 * b) and torch.allclose(s[1], 60 * b * b)
     yb, _ = pc.finish_plain(parts, b, torch.bfloat16)
     assert yb.dtype == torch.bfloat16 and torch.equal(yb.float(), y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_split_plan_counts_the_batch(n):
+    """A batch of n fills the card n times as much: no more splits than one
+    sample takes, at most two blocks per SM in all, the workspace of all n
+    samples under its cap; K1's 128^3 calls never split."""
+    for s, cin, cout in FUSED_CONVS + [(16, 64, 32), (32, 32, 32), (128, 64, 32)]:
+        splits, taps = pc._split_plan(s, s, s, cin, cout, H100_SMS, n)
+        one, _ = pc._split_plan(s, s, s, cin, cout, H100_SMS)
+        _, nch, bn, cout_p = pc._plan(cin, cout)
+        assert 1 <= splits <= min(one, nch * taps) or (splits == 1 and one == 1)
+        assert splits == 1 or n * splits * pc._blocks(s, s, s, bn, cout_p) <= 2 * H100_SMS
+        assert splits == 1 or n * splits * s ** 3 * cout_p * 4 <= pc.SPLIT_WORKSPACE_BYTES
+        if s == 128:
+            assert splits == 1

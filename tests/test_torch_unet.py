@@ -105,16 +105,27 @@ def test_composite_is_chosen_by_dtype_and_geometry():
 
 def test_composite_packs_weights_once_and_again_after_an_update():
     """The composite caches its packed weights on the model: equal to packing
-    per call, reused while the parameters stay, packed again after an
-    in-place update."""
+    per call (the stride-1 layers for `conv3d_rows`, the input conv with its
+    taps folded into K; the stride-2 layer for `conv3d_rows_stride2`),
+    reused while the parameters stay, packed again after an in-place
+    update."""
     from boa_tpu_torch.models.unet import _row_packs, _wcl
     from boa_tpu_torch.ops import rowconv as rc
 
     model = PlainConvUNet(ArchConfig(**_ARCHS["plain4"]), device="cpu").to(torch.bfloat16)
     packs = _row_packs(model)
     assert _row_packs(model) is packs
+    st = model.decoder[-1]
+    stride1 = (model.encoder[0][0].conv, model.encoder[0][1].conv, st.convs[0].conv,
+               st.convs[1].conv)
+    for got, conv in zip(packs.enc0 + packs.dec, stride1):
+        fresh = rc.pack_rows(_wcl(conv), conv.bias)
+        assert got.kind == "conv3d_rows" and (got.cin, got.cout) == (fresh.cin, fresh.cout)
+        assert torch.equal(got.w, fresh.w) and torch.equal(got.bias, fresh.bias)
+    assert packs.enc0[0].cin == 1 and packs.enc0[0].w.numel() == 32 * 32  # 27 taps in K = 32
     conv = model.encoder[1][0].conv
     fresh = rc.pack_conv(_wcl(conv), conv.bias)
+    assert packs.down.kind == "conv3d_rows_stride2"
     assert torch.equal(packs.down.w, fresh.w) and torch.equal(packs.down.bias, fresh.bias)
     up = rc.pack_transp(model.decoder[-1].transp.weight.permute(2, 3, 4, 0, 1),
                         model.decoder[-1].transp.bias)
