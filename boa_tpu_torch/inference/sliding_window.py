@@ -1,14 +1,16 @@
 """Sliding-window fold-ensemble inference with Gaussian-weighted fusion.
 
 Counterpart of `boa_tpu/inference/sliding_window.py` (`tiles_pred`,
-`tile_pred`, `sliding_window_seg_chunked`). Tiles are cut from the
-normalized, padded volume, run through every fold's network (the mean over
-folds), weighted by the Gaussian importance map and added into one
-channels-last (X, Y, Z, classes) accumulator. The accumulator is updated in
-place with slice adds: the reference's chunked static-index machinery
-existed to get in-place updates out of XLA and has no counterpart here.
-The Gaussian weight sum is not divided out: a per-voxel positive scale
-leaves the argmax unchanged, and the argmax runs over the real classes.
+`tile_pred`, `sliding_window_logits`, `sliding_window_seg_chunked`). Tiles
+are cut from the normalized, padded volume, run through every fold's
+network (the mean over folds), weighted by the Gaussian importance map and
+added into one channels-last (X, Y, Z, classes) accumulator. The
+accumulator is updated in place with slice adds: the reference's chunked
+static-index machinery existed to get in-place updates out of XLA and has
+no counterpart here. `sliding_window_logits` also sums the Gaussian weights
+and divides them out, for logits that are resampled afterwards; the fused
+argmax path (`sliding_window_seg_chunked`) skips that, since a per-voxel
+positive scale leaves the argmax unchanged.
 """
 
 from __future__ import annotations
@@ -60,6 +62,38 @@ def tiles_pred(models, vol: torch.Tensor, starts_tb, gauss_w: torch.Tensor,
     if len(models) > 1:
         pred = pred / len(models)
     return pred * gauss_w
+
+
+@torch.no_grad()
+def sliding_window_logits(models, vol: torch.Tensor, starts: np.ndarray,
+                          gaussian: np.ndarray, num_classes: int, mirror_axes=(),
+                          compute_dtype=torch.bfloat16,
+                          accum_dtype=torch.float16) -> torch.Tensor:
+    """Gaussian-weight-normalized fused logits, (classes, X, Y, Z) in
+    `accum_dtype` (a channels-first view of a channels-last volume).
+
+    Logits and the weight sum accumulate in `accum_dtype`, each tile added
+    in float32 and rounded once; the division runs in float32 and rounds
+    back, one x-slab at a time (no float32 copy of the whole volume). In
+    float16, tile-corner weights are subnormal and can underflow to 0, as
+    in the reference."""
+    spatial = tuple(vol.shape[-3:])
+    px, py, pz = gaussian.shape
+    g = torch.as_tensor(gaussian, dtype=torch.float32, device=vol.device)
+    logits = torch.zeros(spatial + (num_classes,), dtype=accum_dtype,
+                         device=vol.device)
+    weights = torch.zeros(spatial, dtype=accum_dtype, device=vol.device)
+    for sx, sy, sz in np.asarray(starts, np.int64):
+        pred = tiles_pred(models, vol, [(sx, sy, sz)], g[..., None], compute_dtype,
+                          (px, py, pz), mirror_axes)[0]
+        win = (slice(sx, sx + px), slice(sy, sy + py), slice(sz, sz + pz))
+        logits[win] = (logits[win].float() + pred).to(accum_dtype)
+        weights[win] = (weights[win].float() + g).to(accum_dtype)
+    for x0 in range(0, spatial[0], 16):
+        sl = slice(x0, x0 + 16)
+        logits[sl] = (logits[sl].float() / weights[sl, ..., None].float()
+                      ).to(accum_dtype)
+    return logits.permute(3, 0, 1, 2)
 
 
 @torch.no_grad()

@@ -16,7 +16,11 @@ def upload_ct(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-upload_labels = upload_ct
+def upload_labels(a: np.ndarray, max_label: int, device: torch.device) -> torch.Tensor:
+    """A label volume on `device` as uint8, or as int32 where `max_label`
+    passes 255 (torch has no uint16 arithmetic)."""
+    dt = np.uint8 if max_label <= 255 else np.int32
+    return upload_ct(np.asarray(a).astype(dt, copy=False), device)
 
 
 def download_labels(dev: torch.Tensor) -> np.ndarray:

@@ -44,14 +44,44 @@ class ModelPlans:
     def transpose_forward(self) -> list[int]:
         return list(self.plans.get("transpose_forward", [0, 1, 2]))
 
+    @property
+    def transpose_backward(self) -> list[int]:
+        return list(self.plans.get("transpose_backward", [0, 1, 2]))
+
+    @property
+    def intensity_properties(self) -> dict:
+        return self.channel_intensity_properties(0)
+
     def channel_intensity_properties(self, c: int) -> dict:
         props = self.plans.get("foreground_intensity_properties_per_channel", {})
         return props.get(str(c), props.get(c, {}))
 
     @property
+    def labels(self) -> dict[str, int]:
+        """dataset.json's plain (non-region) labels, name -> value."""
+        return {k: int(v) for k, v in self.dataset.get("labels", {}).items()
+                if not isinstance(v, (list, tuple))}
+
+    @property
     def has_regions(self) -> bool:
         return any(isinstance(v, (list, tuple)) for v in
                    self.dataset.get("labels", {}).values())
+
+    @property
+    def regions_class_order(self) -> list[int] | None:
+        rco = self.dataset.get("regions_class_order")
+        return [int(v) for v in rco] if rco is not None else None
+
+    @property
+    def foreground_labels(self) -> list[int]:
+        """Sorted non-background label values: the one-hot channel order of
+        a cascade stage's input."""
+        if not self.has_regions:
+            return sorted(v for v in self.labels.values() if v != 0)
+        vals = set()
+        for v in self.dataset.get("labels", {}).values():
+            vals.update(int(x) for x in (v if isinstance(v, (list, tuple)) else [v]))
+        return sorted(x for x in vals if x != 0)
 
     @property
     def num_segmentation_heads(self) -> int:
@@ -69,9 +99,13 @@ class ModelPlans:
 
     @property
     def num_input_channels(self) -> int:
-        return max(1, len(self.dataset.get("channel_names",
-                                           self.dataset.get("modality",
-                                                            {"0": "CT"}))))
+        """Image channels, plus one one-hot channel per foreground label for
+        a cascade stage."""
+        n = max(1, len(self.dataset.get("channel_names",
+                                        self.dataset.get("modality", {"0": "CT"}))))
+        if self.previous_stage is not None:
+            n += len(self.foreground_labels)
+        return n
 
     @property
     def patch_size(self) -> list[int]:
@@ -92,6 +126,10 @@ class ModelPlans:
     @property
     def normalization_schemes(self) -> list[str]:
         return list(self.conf.get("normalization_schemes", ["CTNormalization"]))
+
+    @property
+    def use_mask_for_norm(self) -> list[bool]:
+        return list(self.conf.get("use_mask_for_norm", [False]))
 
     def arch_config(self) -> ArchConfig:
         return arch_config_from_plans(

@@ -1,26 +1,61 @@
 """Segmentation label tables.
 
-Counterpart of `boa_tpu/tasks/class_maps.py`; `data/class_maps.json` holds
-the 117-class `total` map (label 0 is background) that the ported tasks
-use.
+Counterpart of `boa_tpu/tasks/class_maps.py`; `data/class_maps.json` is a
+copy of the reference's data: the 50 task label maps (`total` = 117
+classes, label 0 is background), `class_map_5_parts` (the split of `total`
+into the outputs of its five sub-models), `map_taskid_to_partname_ct` and
+`commercial_models`. The BCA label definitions are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
+from collections.abc import Mapping
 from functools import lru_cache
 from pathlib import Path
 
 _DATA = Path(__file__).parent / "data"
 
 
+def _int_keys(table: dict) -> dict:
+    return {name: {int(i): v for i, v in labels.items()}
+            for name, labels in table.items()}
+
+
 @lru_cache(maxsize=1)
 def _load() -> dict:
     with open(_DATA / "class_maps.json") as f:
         raw = json.load(f)
-    return {task: {int(i): name for i, name in labels.items()}
-            for task, labels in raw["class_map"].items()}
+    return {
+        "class_map": _int_keys(raw["class_map"]),
+        "class_map_5_parts": _int_keys(raw["class_map_5_parts"]),
+        "map_taskid_to_partname_ct": {
+            int(tid): part for tid, part in raw["map_taskid_to_partname_ct"].items()},
+        "commercial_models": dict(raw["commercial_models"]),
+    }
 
 
 def get_class_map(task_name: str) -> dict[int, str]:
-    return dict(_load()[task_name])
+    return dict(_load()["class_map"][task_name])
+
+
+class _Lazy(Mapping):
+    """Read-only mapping view of one table, loaded on first use."""
+
+    def __init__(self, key: str):
+        self._key = key
+
+    def __getitem__(self, item):
+        return _load()[self._key][item]
+
+    def __iter__(self):
+        return iter(_load()[self._key])
+
+    def __len__(self):
+        return len(_load()[self._key])
+
+
+class_map = _Lazy("class_map")
+class_map_5_parts = _Lazy("class_map_5_parts")
+map_taskid_to_partname = _Lazy("map_taskid_to_partname_ct")
+commercial_models = _Lazy("commercial_models")

@@ -50,6 +50,10 @@ class ModelStore:
         params = []
         for f in folds:
             npz = mdir / f"fold_{f}" / "checkpoint_final.npz"
+            if not npz.exists() and npz.with_suffix(".pth").exists():
+                raise NotImplementedError(
+                    f".pth checkpoints ({npz.with_suffix('.pth')}) wait for M1 "
+                    f"(the torch state-dict loader)")
             if not npz.exists():
                 raise FileNotFoundError(f"missing checkpoint for fold {f} in "
                                         f"{mdir}")

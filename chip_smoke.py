@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (boa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--phases=a,b]
 
 Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 
@@ -10,10 +10,12 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               at the shapes a 128^3 total_fast tile gives it (bf16 outputs
               at rtol = atol = 2e-2, per-channel sums within 1e-2 of the
               largest sum of squares). K1's four calls of a tile are each
-              printed; K1 (stage 0's second conv) and K3 (with its bias)
-              write and K2 reads a channel slice of the (1, 128, 128, 128,
-              64) decoder concat, as the main path runs them; the channels
-              a writer does not own must keep their bits. CUDA-event times of the kernel's launch alone
+              printed, and its input conv at cin = 2 and 5 (the padded
+              chunk of a multi-channel input); K1 (stage 0's second conv)
+              and K3 (with its bias) write and K2 reads a channel slice of
+              the (1, 128, 128, 128, 64) decoder concat, as the main path
+              runs them; the channels a writer does not own must keep their
+              bits. CUDA-event times of the kernel's launch alone
               (`kernel_ms`: weights packed and buffers allocated beforehand),
               the public wrapper (`wrapper_ms`), the plain version and the
               closest single PyTorch library call
@@ -37,13 +39,29 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               with per-stage spans, peak memory and the kernel launch
               counts, which must equal tiles x (4, 1, 1) on every run, with
               no K5 launch and no finishing launch
+6. total    - `predict_image(img, "total", store)` without `fast`: five
+              sub-models (291-295) at 1.5 mm, step 0.8, merged on the card.
+              (a) small widths (32, 64, 128), 32^3 patch, on the 96x96x64
+              CT: labels agree with the CPU run > 0.99, come from >= 3
+              sub-models and lie in the `total` map; (b) the crop task
+              liver_vessels (1 mm plan, the predictor's own resample, its
+              weight-normalized logits and class-chunked argmax) on a
+              liver-sized box: labels agree with the CPU run > 0.99; (c) the
+              512x512x300 study at the total_fast widths (128^3 patch, 120
+              tiles per sub-model on the 448x384x600 grid): one warm-up and
+              two timed runs with spans (predict_291 ... predict_295), peak
+              memory and each sub-model loaded once. Every run's launches
+              equal tiles x (4, 1, 1) with no K5 launch, and in (c) no
+              finishing launch (the 32^3 tiles of (a) and (b) split K1)
 
-With --profile, the fused and study phases each add one more run under
-torch.profiler (device busy share, kernels by device time). With
---phases=a,b (of kernels, forward, fused, study) only those phases run after
-the device phase, and the kernel summary line is left out. Each phase
-prints one JSON line. Then come the kernel summary line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
+With --profile, the fused, study and total phases each add one more run
+under torch.profiler (device busy share, kernels by device time). With
+--phases=a,b (of kernels, forward, fused, study, total) only those phases
+run after the device phase, and the kernel summary line is left out. Each
+phase prints one JSON line (the total phase one per part). Then come the
+kernel summary line {"kernels": [...]} (K1-K3's `launches` are the fast
+study's, `launches_total` the full total study's) and, last,
+{"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
 Weights are random, drawn from fixed seeds.
@@ -63,6 +81,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
+PART_IDS = (291, 292, 293, 294, 295)   # the sub-models of `total`, merged in order
+BACKGROUND_LEAD = 1.0   # background's head bias over the largest other, per part
 REPLACES = {
     "conv3d_rows": "boa_tpu/ops/rowconv.py:78, boa_tpu/ops/rowconv.py:334",
     "conv3d_rows_stride2": "boa_tpu/ops/rowconv.py:426",
@@ -168,7 +188,9 @@ def phase_kernels(torch, rc) -> list[dict]:
     # 64->32, 32->32 (decoder). Layout "concat" is the main path's: K1
     # (stage 0's second conv) and K3 (with its bias) write and K2 reads a
     # 32-channel slice of the (1, 128, 128, 128, 64) decoder concat; "dense"
-    # cases take and give whole tensors.
+    # cases take and give whole tensors; "channels" cases are the input conv
+    # of a 2- or 5-channel input (K5's padded-chunk path, not the tap-folded
+    # one), which `total` does not run.
     cases = [
         ("conv3d_rows", 1, 128, 1, 32, "none", "dense"),
         ("conv3d_rows", 1, 128, 32, 32, "scalar", "concat"),
@@ -177,6 +199,9 @@ def phase_kernels(torch, rc) -> list[dict]:
         ("conv3d_rows", 2, 128, 1, 32, "none", "dense"),
         ("conv3d_rows", 2, 128, 32, 32, "scalar", "dense"),
         ("conv3d_rows", 2, 128, 64, 32, "vector", "dense"),
+        # a multi-channel or cascade input: cin < 16 in a padded 16-wide chunk
+        ("conv3d_rows", 1, 128, 5, 32, "none", "channels"),
+        ("conv3d_rows", 1, 128, 2, 32, "none", "channels"),
         ("conv3d_rows_stride2", 1, 128, 32, 64, "scalar", "dense"),
         ("conv3d_rows_stride2", 1, 128, 32, 64, "scalar", "concat"),
         ("transpconv2_rows", 1, 64, 64, 32, None, "dense"),
@@ -453,22 +478,40 @@ def _bench_ct(shape, spacing):
     return NiftiImage(data=vol.astype(np.int16), affine=affine)
 
 
-def _store(tmp, features, patch, label_names, head_bias: bool):
+def _synthetic(tmp, task_id: int, name: str, trainer: str, num_classes: int,
+               features, patch, spacing, label_names=None,
+               background_lead: float | None = None) -> None:
+    """A synthetic model folder with the bench's trick for coherent regions
+    from random weights: the seg head biased with N(0, 3) from seed
+    7 (+ the task id for the sub-models of `total` and the crop task). With
+    `background_lead`, background's bias then leads the largest other by it,
+    so that a sub-model of `total` predicts background in places and leaves
+    room to the ones merged before it, as trained sub-models do."""
     from boa_tpu_torch.weights import convert as cv
-    from boa_tpu_torch.weights.store import ModelStore, create_synthetic_model
+    from boa_tpu_torch.weights.store import create_synthetic_model
 
     mdir = create_synthetic_model(
-        tmp, 297, "TotalSegmentator_total_3mm_1559subj",
-        num_classes=len(label_names),
-        trainer="nnUNetTrainer_4000epochs_NoMirroring", patch_size=patch,
-        spacing=(3.0, 3.0, 3.0), features=features, label_names=label_names)
-    if head_bias:  # the bench's trick: coherent regions from random weights
-        path = mdir / "fold_0" / "checkpoint_final.npz"
-        p0 = cv.load_params_npz(path)
-        head = p0["seg_heads"][-1]
-        head["b"] = head["b"] + np.asarray(np.random.default_rng(7).normal(
-            0, 3.0, head["b"].shape), head["b"].dtype)
-        cv.save_params_npz(p0, path)
+        tmp, task_id, name, num_classes=num_classes, trainer=trainer,
+        patch_size=patch, spacing=spacing, features=features,
+        label_names=label_names)
+    path = mdir / "fold_0" / "checkpoint_final.npz"
+    p0 = cv.load_params_npz(path)
+    head = p0["seg_heads"][-1]
+    seed = 7 if task_id == 297 else 7 + task_id
+    head["b"] = head["b"] + np.asarray(np.random.default_rng(seed).normal(
+        0, 3.0, head["b"].shape), head["b"].dtype)
+    if background_lead is not None:
+        head["b"][0] = head["b"][1:].max() + background_lead
+    cv.save_params_npz(p0, path)
+
+
+def _store(tmp, features, patch, label_names):
+    """The synthetic `total_fast` model (task 297) in a store."""
+    from boa_tpu_torch.weights.store import ModelStore
+
+    _synthetic(tmp, 297, "TotalSegmentator_total_3mm_1559subj",
+               "nnUNetTrainer_4000epochs_NoMirroring", len(label_names), features,
+               patch, (3.0, 3.0, 3.0), label_names)
     return ModelStore(tmp)
 
 
@@ -499,6 +542,15 @@ def _profile(torch, run) -> dict:
             "top": [{"ms": r[0], "calls": r[1], "name": r[2]} for r in rows[:15]]}
 
 
+def _want_launches(tiles: int, rows_finish: int = 0) -> dict:
+    """The composite's launches for `tiles` tile forwards: K1 four times, K2
+    and K3 once each, no K5, and `rows_finish` finishing passes of K1's
+    split calls (none at 128^3; small tiles split, `pallas_conv._split_plan`)."""
+    return {"conv3d_rows": 4 * tiles, "conv3d_rows_finish": rows_finish,
+            "conv3d_rows_stride2": tiles, "transpconv2_rows": tiles,
+            "conv3d_in_act": 0, "conv3d_in_act_finish": 0}
+
+
 def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
     from boa_tpu_torch.inference.pipeline import predict_image
     from boa_tpu_torch.tasks.class_maps import get_class_map
@@ -508,7 +560,7 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
 
     # --- small study: card (kernels) against the CPU (plain versions)
     with tempfile.TemporaryDirectory() as tmp:
-        store = _store(tmp, (32, 64, 128), (32, 32, 32), label_names, True)
+        store = _store(tmp, (32, 64, 128), (32, 32, 32), label_names)
         img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
         rc.reset_launches()
         pc.reset_launches()
@@ -525,7 +577,7 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
     # --- the 512x512x300 fast-total study
     shape, spacing = (512, 512, 300), (1.5, 1.5, 3.0)
     with tempfile.TemporaryDirectory() as tmp:
-        store = _store(tmp, TOTAL_FAST_FEATURES, (128, 128, 128), label_names, True)
+        store = _store(tmp, TOTAL_FAST_FEATURES, (128, 128, 128), label_names)
         img = _bench_ct(shape, spacing)
         times, runs = [], []
         torch.cuda.reset_peak_memory_stats()
@@ -538,9 +590,7 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
             dt = time.perf_counter() - t0
             launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
             tiles = spans["tiles"]
-            want = {"conv3d_rows": 4 * tiles, "conv3d_rows_finish": 0,
-                    "conv3d_rows_stride2": tiles, "transpconv2_rows": tiles,
-                    "conv3d_in_act": 0, "conv3d_in_act_finish": 0}
+            want = _want_launches(tiles)
             assert tiles > 0 and launches == want, (launches, want)
             seg = r.seg.data
             assert seg.shape == shape and seg.dtype == np.uint8
@@ -562,6 +612,167 @@ def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
     return res
 
 
+class _CountingStore:
+    """A ModelStore that counts its checkpoint loads (the device weight
+    cache should load each sub-model once across runs)."""
+
+    def __init__(self, root) -> None:
+        from boa_tpu_torch.weights.store import ModelStore
+
+        self.inner, self.loads = ModelStore(root), 0
+        self.root = self.inner.root
+
+    def model_dir(self, *a, **kw):
+        return self.inner.model_dir(*a, **kw)
+
+    def load(self, *a, **kw):
+        self.loads += 1
+        return self.inner.load(*a, **kw)
+
+
+def _parts_store(tmp, features, patch, spacing) -> "_CountingStore":
+    """The five synthetic sub-models 291-295 of `total`, heads of
+    max(part) + 1 classes."""
+    from boa_tpu_torch.tasks import class_maps
+
+    for tid in PART_IDS:
+        part = class_maps.class_map_5_parts[class_maps.map_taskid_to_partname[tid]]
+        _synthetic(tmp, tid, f"TotalSegmentator_part{tid}", "nnUNetTrainerNoMirroring",
+                   max(part) + 1, features, patch, spacing,
+                   background_lead=BACKGROUND_LEAD)
+    return _CountingStore(tmp)
+
+
+def _parts_of(seg) -> list[str]:
+    """The sub-models (parts) whose labels appear in a `total` label volume."""
+    from boa_tpu_torch.tasks import class_maps
+
+    names = {class_maps.get_class_map("total")[int(v)] for v in np.unique(seg) if v}
+    return sorted(p for p in (class_maps.map_taskid_to_partname[t] for t in PART_IDS)
+                  if names & set(class_maps.class_map_5_parts[p].values()))
+
+
+def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
+    """`predict_image(img, "total", store)` without `fast`: five sub-models
+    at 1.5 mm merged on the card. (a) small widths, card against the CPU;
+    (b) a crop task through the predictor's own resample (its general
+    path), card against the CPU; (c) the 512x512x300 study at the
+    total_fast widths: one warm-up and two timed runs (with `profile_run`,
+    one more under the profiler)."""
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.io.nifti import NiftiImage
+    from boa_tpu_torch.ops import cropping
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.tasks import class_maps
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.tasks.registry import get_task
+
+    total_labels = set(get_class_map("total"))
+    res = {}
+
+    def launches() -> dict:
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset() -> None:
+        rc.reset_launches()
+        pc.reset_launches()
+
+    # --- (a) small total, card against the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        store = _parts_store(tmp, (32, 64, 128), (32, 32, 32), (1.5, 1.5, 1.5))
+        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        spans: dict = {}
+        reset()
+        gpu = predict_image(img, "total", store, device="cuda", spans=spans).seg.data
+        got = launches()
+        cpu = predict_image(img, "total", store, device="cpu").seg.data
+        res["small"] = {"agree": float((gpu == cpu).mean()), "tiles": spans["tiles"],
+                        "launches": got, "parts": _parts_of(gpu),
+                        "labels_present": int(len(np.unique(gpu)))}
+        emit({"phase": "total", "part": "small", **res["small"]})
+        assert gpu.shape == img.shape and set(np.unique(gpu)) - {0} <= total_labels
+        assert got == _want_launches(spans["tiles"], got["conv3d_rows_finish"]), got
+        assert res["small"]["agree"] > 0.99 and len(res["small"]["parts"]) >= 3, res
+
+    # --- (b) the general predictor path: liver_vessels (task 8, 3 classes,
+    #     1 mm plan) on a liver-sized crop box
+    with tempfile.TemporaryDirectory() as tmp:
+        from boa_tpu_torch.weights.store import ModelStore
+
+        _synthetic(tmp, 8, "liver_vessels", "nnUNetTrainer", 3, (32, 64, 128),
+                   (32, 32, 32), (1.0, 1.0, 1.0))
+        store = ModelStore(tmp)
+        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        mask = np.zeros(img.shape, np.uint8)
+        mask[24:64, 28:60, 16:40] = 1
+        crop = NiftiImage(data=mask, affine=img.affine.copy())
+        spans = {}
+        reset()
+        gpu = predict_image(img, "liver_vessels", store, crop_mask=crop,
+                            device="cuda", spans=spans).seg.data
+        got = launches()
+        cpu = predict_image(img, "liver_vessels", store, crop_mask=crop,
+                            device="cpu").seg.data
+        res["crop"] = {"agree": float((gpu == cpu).mean()), "tiles": spans["tiles"],
+                       "launches": got, "labels": sorted(int(v) for v in np.unique(gpu))}
+        emit({"phase": "total", "part": "crop", **res["crop"]})
+        box = cropping.get_bbox_from_mask(mask, addon=(np.array(
+            get_task("liver_vessels").crop_addon) / np.array(img.zooms)).astype(int))
+        inside = np.zeros(mask.shape, bool)
+        inside[tuple(slice(a, b) for a, b in box)] = True
+        assert gpu.shape == img.shape and not gpu[~inside].any()
+        assert got == _want_launches(spans["tiles"], got["conv3d_rows_finish"]) \
+            and got["conv3d_rows"] > 0, got
+        assert res["crop"]["agree"] > 0.99, res["crop"]
+
+    # --- (c) the 512x512x300 study at the total_fast widths
+    shape, spacing = (512, 512, 300), (1.5, 1.5, 3.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = _parts_store(tmp, TOTAL_FAST_FEATURES, (128, 128, 128), (1.5, 1.5, 1.5))
+        img = _bench_ct(shape, spacing)
+        times, runs = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            spans = {}
+            reset()
+            t0 = time.perf_counter()
+            r = predict_image(img, "total", store, spans=spans)
+            dt = time.perf_counter() - t0
+            got = launches()
+            grid = tuple(r.seg_model_grid.shape)
+            per_model = len(pp.tile_starts(tuple(max(n, 128) for n in grid),
+                                           (128, 128, 128), 0.8))
+            assert spans["tiles"] == len(PART_IDS) * per_model, (spans, per_model)
+            assert got == _want_launches(spans["tiles"]), got
+            seg = r.seg.data
+            assert seg.shape == shape and seg.dtype == np.uint8
+            assert set(np.unique(seg)) - {0} <= total_labels
+            runs.append({"s": dt, "spans": spans, "launches": got})
+            if i > 0:
+                times.append(dt)
+        # the accumulator rule (inference/predictor.py:_accum): float16 once
+        # float32 logits of the widest head would pass 2 GB
+        fp32_bytes = 4 * max(max(class_maps.class_map_5_parts[
+            class_maps.map_taskid_to_partname[t]]) + 1 for t in PART_IDS) * int(np.prod(grid))
+        res["study"] = {
+            "sec_min": min(times), "sec_median": statistics.median(times),
+            "timed_runs": len(times), "warmup_s": runs[0]["s"],
+            "model_grid": list(grid), "tiles_per_submodel": per_model,
+            "tiles": spans["tiles"],
+            "accum_dtype": "float16" if fp32_bytes > 2e9 else "float32",
+            "fp32_logit_bytes": fp32_bytes, "checkpoint_loads": store.loads,
+            "labels_present": int(len(np.unique(seg))), "parts": _parts_of(seg),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "spans": runs[-1]["spans"], "launches": runs[-1]["launches"],
+            "seconds_all": [x["s"] for x in runs]}
+        assert store.loads == len(PART_IDS), store.loads
+        if profile_run:
+            res["study"]["profile"] = _profile(
+                torch, lambda: predict_image(img, "total", store))
+    emit({"phase": "total", "part": "study", **res["study"]})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -579,7 +790,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -589,11 +800,14 @@ def _summary(cases, fused_cases, fused, study) -> list[dict]:
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
         # path runs them
-        mine = [c for c in cases if c["name"] == name and c["n"] == 1]
+        mine = [c for c in cases if c["name"] == name and c["n"] == 1
+                and c["layout"] != "channels"]
         if name != "conv3d_rows":
             mine = [c for c in mine if c["layout"] == "concat"]
         row = _row(name, mine, [c for c in cases if c["name"] == name],
                    study["launches"][name])
+        # the same kernels' launches on the full (five-model) total study
+        row["launches_total"] = total["study"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -613,7 +827,7 @@ def main() -> int:
 
     resolve_device("cuda")  # pins the float32 precision flags
     profile_run = "--profile" in sys.argv[1:]
-    phases = ("kernels", "forward", "fused", "study")
+    phases = ("kernels", "forward", "fused", "study", "total")
     for arg in sys.argv[1:]:
         if arg.startswith("--phases="):
             phases = tuple(arg.split("=", 1)[1].split(","))
@@ -626,8 +840,10 @@ def main() -> int:
         fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
     if "study" in phases:
         study = phase_study(torch, rc, pc, profile_run)
-    if len(phases) == 4:
-        emit({"kernels": _summary(cases, fused_cases, fused, study)})
+    if "total" in phases:
+        total = phase_total(torch, rc, pc, profile_run)
+    if len(phases) == 5:
+        emit({"kernels": _summary(cases, fused_cases, fused, study, total)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
