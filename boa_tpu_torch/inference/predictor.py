@@ -294,7 +294,8 @@ class Predictor:
         (sigmoid for region plans) of the logits resampled back to the
         input grid; it takes the general path."""
         if self.plans.transpose_forward != [0, 1, 2]:
-            raise NotImplementedError("non-identity transpose_forward")
+            raise NotImplementedError("non-identity transpose_forward (ROADMAP "
+                                      "Queue 3, watch list)")
         if self.plans.previous_stage is not None and prev_seg_xyz is None:
             raise ValueError(
                 f"configuration {self.plans.configuration_name!r} is a cascade "
