@@ -131,9 +131,6 @@ def predict_image(
     fake_predict: Callable[[np.ndarray, tuple, int], np.ndarray] | None = None,
     remove_small_blobs: bool = False,
     save_probabilities=None,
-    stats_aggregation: str = "mean",
-    stats_normalized_intensities: bool = False,
-    stats_exclude_border: bool = True,
     keep_device_seg: bool = False,
     device=None,
     spans: dict | None = None,
@@ -152,7 +149,9 @@ def predict_image(
     suffix per sub-model. keep_device_seg also returns the labels as a
     device tensor (`seg_dev_full`) where no crop mask is given. `spans`,
     when given, receives the wall seconds of each stage (`predict_{tid}`
-    per sub-model) and the tile count of all sub-models ("tiles")."""
+    per sub-model), the tile count of all sub-models ("tiles") and the
+    number of them that accumulated in float16 ("float16_accumulators").
+    The reference's `stats_*` options arrive with statistics (M7)."""
     if statistics:
         raise NotImplementedError("statistics=True waits for M7 "
                                   "(measure/statistics.py)")
@@ -394,6 +393,7 @@ def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, *,
         else:
             seg = pred.predict(data_rsp, spacing, return_device=True)
         sp.add("tiles", pred.n_tiles)
+        sp.add("float16_accumulators", int(pred.accum_used == torch.float16))
         return seg
 
     if getattr(fake_predict, "run_real", False):

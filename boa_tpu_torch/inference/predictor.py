@@ -65,23 +65,15 @@ def determine_separate_z(current_spacing, new_spacing,
     return True, int(axis[0])
 
 
-def _argmax_resampled(logits: torch.Tensor, target_shape, sep_z,
-                      chunk: int = 8) -> torch.Tensor:
-    """argmax over classes of the order-1 ('resize') resampled logits, taken
-    `chunk` classes at a time with a running (max, argmax), so the
-    full-resolution logits never exist at once. int64 labels."""
-    best = idx = None
-    for c0 in range(0, logits.shape[0], chunk):
-        ch = rs.resample_volume(logits[c0:c0 + chunk].float(), target_shape,
-                                order=1, convention="resize",
-                                separate_z_order=sep_z)
-        m, a = ch.amax(dim=0), ch.argmax(dim=0) + c0
-        if best is None:
-            best, idx = m, a
-        else:
-            idx = torch.where(m > best, a, idx)
-            best = torch.maximum(best, m)
-    return idx
+def _argmax_resampled(logits: torch.Tensor, target_shape, sep_z) -> torch.Tensor:
+    """argmax over classes of the order-1 ('resize') resampled logits, 8
+    classes at a time (`resample.argmax_chunked`), so the full-resolution
+    logits never exist at once. int64 labels."""
+    return rs.argmax_chunked(
+        lambda c0, c1: rs.resample_volume(logits[c0:c1].float(), target_shape,
+                                          order=1, convention="resize",
+                                          separate_z_order=sep_z),
+        logits.shape[0])
 
 
 def _pads(spatial, patch, bucket: int | None) -> list[tuple[int, int]]:
@@ -208,12 +200,17 @@ class Predictor:
         self._cast = [cast_model(m.to(self.device), self._dtype)
                       for m in self.models]
         self.n_tiles = 0  # tiles of the last prediction
+        self.accum_used: torch.dtype | None = None  # its accumulator dtype
 
     def _accum(self, padded_shape) -> torch.dtype:
         if self.accum_dtype == "auto":
             nbytes = 4 * self.cfg.num_classes * int(np.prod(padded_shape))
             return torch.float16 if nbytes > 2e9 else torch.float32
         return _DTYPES[self.accum_dtype]
+
+    def _use_accum(self, padded_shape) -> torch.dtype:
+        self.accum_used = self._accum(padded_shape)
+        return self.accum_used
 
     def _gauss(self, patch) -> np.ndarray:
         return (pp.gaussian_importance_map(patch) if self.use_gaussian
@@ -251,7 +248,7 @@ class Predictor:
         logits = self._with_fp16_retry(lambda: sliding_window_logits(
             self._cast, vol, starts, self._gauss(patch), self.cfg.num_classes,
             mirror_axes=self.mirror_axes, compute_dtype=self._dtype,
-            accum_dtype=self._accum(padded)), padded)
+            accum_dtype=self._use_accum(padded)), padded)
         return logits[(slice(None),) + tuple(slice(b, b + n)
                                              for (b, _), n in zip(pads, spatial))]
 
@@ -275,7 +272,7 @@ class Predictor:
         return sliding_window_seg_chunked(
             self._cast, v, starts, self._gauss(patch), self.cfg.num_classes,
             mirror_axes=self.mirror_axes, compute_dtype=self._dtype,
-            accum_dtype=self._accum(padded),
+            accum_dtype=self._use_accum(padded),
             seg_dtype=torch.uint8 if self.cfg.num_classes <= 255 else torch.int32,
             revert=tuple((b, b + n) for (b, _), n in zip(pads, spatial)),
             tile_batch=tb)

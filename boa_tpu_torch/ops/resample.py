@@ -123,29 +123,39 @@ def resample_nearest(vol: torch.Tensor, new_shape, convention: str = "zoom",
     return out
 
 
-def resample_seg_onehot(seg: torch.Tensor, new_shape, num_classes: int,
-                        order: int = 1, convention: str = "resize",
-                        separate_z_order: int | None = None,
-                        windows=None) -> torch.Tensor:
-    """Label resampling as the argmax of each class's one-hot mask resampled
-    with `order` (batchgenerators `resize_segmentation`, nnU-Net's seg
-    resample). Classes go 8 at a time with a running (max, argmax), so only
-    8 one-hot volumes exist at once; a tie keeps the lower class, as one
-    argmax over all classes would. Returns `seg`'s dtype."""
+def argmax_chunked(produce, num_classes: int, chunk: int = 8) -> torch.Tensor:
+    """argmax over classes of `produce(c0, c1)`, the (c1 - c0, ...) values of
+    classes c0..c1-1, taken `chunk` classes at a time with a running (max,
+    argmax), so only `chunk` class volumes exist at once; a tie keeps the
+    lower class, as one argmax over all classes would. int64 labels."""
     best = idx = None
-    chunk = 8
     for c0 in range(0, num_classes, chunk):
-        cls = torch.arange(c0, min(c0 + chunk, num_classes), device=seg.device)
-        oh = (seg[None] == cls.view(-1, 1, 1, 1)).float()
-        res = resample_volume(oh, new_shape, order=order, convention=convention,
-                              separate_z_order=separate_z_order, windows=windows)
+        res = produce(c0, min(c0 + chunk, num_classes))
         m, a = res.amax(dim=0), res.argmax(dim=0) + c0
         if best is None:
             best, idx = m, a
         else:
             idx = torch.where(m > best, a, idx)
             best = torch.maximum(best, m)
-    return idx.to(seg.dtype)
+    return idx
+
+
+def resample_seg_onehot(seg: torch.Tensor, new_shape, num_classes: int,
+                        order: int = 1, convention: str = "resize",
+                        separate_z_order: int | None = None,
+                        windows=None) -> torch.Tensor:
+    """Label resampling as the argmax of each class's one-hot mask resampled
+    with `order` (batchgenerators `resize_segmentation`, nnU-Net's seg
+    resample), 8 classes at a time (`argmax_chunked`). Returns `seg`'s
+    dtype."""
+
+    def onehot(c0: int, c1: int) -> torch.Tensor:
+        cls = torch.arange(c0, c1, device=seg.device)
+        oh = (seg[None] == cls.view(-1, 1, 1, 1)).float()
+        return resample_volume(oh, new_shape, order=order, convention=convention,
+                               separate_z_order=separate_z_order, windows=windows)
+
+    return argmax_chunked(onehot, num_classes).to(seg.dtype)
 
 
 def resample_nearest_host(vol: np.ndarray, new_shape, convention: str = "zoom",

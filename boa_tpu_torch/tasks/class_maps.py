@@ -10,11 +10,7 @@ into the outputs of its five sub-models), `map_taskid_to_partname_ct` and
 from __future__ import annotations
 
 import json
-from collections.abc import Mapping
-from functools import lru_cache
 from pathlib import Path
-
-_DATA = Path(__file__).parent / "data"
 
 
 def _int_keys(table: dict) -> dict:
@@ -22,40 +18,16 @@ def _int_keys(table: dict) -> dict:
             for name, labels in table.items()}
 
 
-@lru_cache(maxsize=1)
-def _load() -> dict:
-    with open(_DATA / "class_maps.json") as f:
-        raw = json.load(f)
-    return {
-        "class_map": _int_keys(raw["class_map"]),
-        "class_map_5_parts": _int_keys(raw["class_map_5_parts"]),
-        "map_taskid_to_partname_ct": {
-            int(tid): part for tid, part in raw["map_taskid_to_partname_ct"].items()},
-        "commercial_models": dict(raw["commercial_models"]),
-    }
+with open(Path(__file__).parent / "data" / "class_maps.json") as _f:
+    _RAW = json.load(_f)
+
+class_map: dict[str, dict[int, str]] = _int_keys(_RAW["class_map"])
+class_map_5_parts: dict[str, dict[int, str]] = _int_keys(_RAW["class_map_5_parts"])
+map_taskid_to_partname: dict[int, str] = {
+    int(tid): part for tid, part in _RAW["map_taskid_to_partname_ct"].items()}
+commercial_models: dict = dict(_RAW["commercial_models"])
+del _RAW
 
 
 def get_class_map(task_name: str) -> dict[int, str]:
-    return dict(_load()["class_map"][task_name])
-
-
-class _Lazy(Mapping):
-    """Read-only mapping view of one table, loaded on first use."""
-
-    def __init__(self, key: str):
-        self._key = key
-
-    def __getitem__(self, item):
-        return _load()[self._key][item]
-
-    def __iter__(self):
-        return iter(_load()[self._key])
-
-    def __len__(self):
-        return len(_load()[self._key])
-
-
-class_map = _Lazy("class_map")
-class_map_5_parts = _Lazy("class_map_5_parts")
-map_taskid_to_partname = _Lazy("map_taskid_to_partname_ct")
-commercial_models = _Lazy("commercial_models")
+    return dict(class_map[task_name])

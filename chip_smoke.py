@@ -50,9 +50,13 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               512x512x300 study at the total_fast widths (128^3 patch, 120
               tiles per sub-model on the 448x384x600 grid): one warm-up and
               two timed runs with spans (predict_291 ... predict_295), peak
-              memory and each sub-model loaded once. Every run's launches
-              equal tiles x (4, 1, 1) with no K5 launch, and in (c) no
-              finishing launch (the 32^3 tiles of (a) and (b) split K1)
+              memory and each sub-model loaded once; (d) liver_vessels at
+              the total_fast widths (128^3 patch) on a liver-sized box of
+              the same CT: one warm-up and one timed run (seconds, spans,
+              peak memory), labels in the box agree > 0.99 with the same
+              run on the plain composite. Every run's launches equal tiles x
+              (4, 1, 1) with no K5 launch, and K1's finishing launches are
+              those its split plan gives (three a tile at 32^3, none at 128^3)
 
 With --profile, the fused, study and total phases each add one more run
 under torch.profiler (device busy share, kernels by device time). With
@@ -545,10 +549,20 @@ def _profile(torch, run) -> dict:
 def _want_launches(tiles: int, rows_finish: int = 0) -> dict:
     """The composite's launches for `tiles` tile forwards: K1 four times, K2
     and K3 once each, no K5, and `rows_finish` finishing passes of K1's
-    split calls (none at 128^3; small tiles split, `pallas_conv._split_plan`)."""
+    split calls (`_rows_finish`)."""
     return {"conv3d_rows": 4 * tiles, "conv3d_rows_finish": rows_finish,
             "conv3d_rows_stride2": tiles, "transpconv2_rows": tiles,
             "conv3d_in_act": 0, "conv3d_in_act_finish": 0}
+
+
+def _rows_finish(torch, pc, tiles: int, patch, width: int) -> int:
+    """K1's finishing launches for `tiles` one-tile forwards: one for each of
+    a tile's three wide calls (width -> width, 2 width -> width, width ->
+    width) that `pallas_conv._split_plan` splits at the patch; the 1-channel
+    input conv never splits. None at 128^3, three at 32^3 on an H100."""
+    sms = pc._sms(torch.device("cuda"))
+    return tiles * sum(pc._split_plan(*patch, cin, width, sms)[0] > 1
+                       for cin in (width, 2 * width, width))
 
 
 def phase_study(torch, rc, pc, profile_run: bool = False) -> dict:
@@ -663,7 +677,6 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
     from boa_tpu_torch.io.nifti import NiftiImage
     from boa_tpu_torch.ops import cropping
     from boa_tpu_torch.ops import preprocess as pp
-    from boa_tpu_torch.tasks import class_maps
     from boa_tpu_torch.tasks.class_maps import get_class_map
     from boa_tpu_torch.tasks.registry import get_task
 
@@ -691,7 +704,9 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
                         "labels_present": int(len(np.unique(gpu)))}
         emit({"phase": "total", "part": "small", **res["small"]})
         assert gpu.shape == img.shape and set(np.unique(gpu)) - {0} <= total_labels
-        assert got == _want_launches(spans["tiles"], got["conv3d_rows_finish"]), got
+        want = _want_launches(spans["tiles"], _rows_finish(torch, pc, spans["tiles"],
+                                                           (32, 32, 32), 32))
+        assert got == want, (got, want)
         assert res["small"]["agree"] > 0.99 and len(res["small"]["parts"]) >= 3, res
 
     # --- (b) the general predictor path: liver_vessels (task 8, 3 classes,
@@ -721,8 +736,9 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
         inside = np.zeros(mask.shape, bool)
         inside[tuple(slice(a, b) for a, b in box)] = True
         assert gpu.shape == img.shape and not gpu[~inside].any()
-        assert got == _want_launches(spans["tiles"], got["conv3d_rows_finish"]) \
-            and got["conv3d_rows"] > 0, got
+        want = _want_launches(spans["tiles"], _rows_finish(torch, pc, spans["tiles"],
+                                                           (32, 32, 32), 32))
+        assert got == want and got["conv3d_rows"] > 0, (got, want)
         assert res["crop"]["agree"] > 0.99, res["crop"]
 
     # --- (c) the 512x512x300 study at the total_fast widths
@@ -750,17 +766,14 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
             runs.append({"s": dt, "spans": spans, "launches": got})
             if i > 0:
                 times.append(dt)
-        # the accumulator rule (inference/predictor.py:_accum): float16 once
-        # float32 logits of the widest head would pass 2 GB
-        fp32_bytes = 4 * max(max(class_maps.class_map_5_parts[
-            class_maps.map_taskid_to_partname[t]]) + 1 for t in PART_IDS) * int(np.prod(grid))
         res["study"] = {
             "sec_min": min(times), "sec_median": statistics.median(times),
             "timed_runs": len(times), "warmup_s": runs[0]["s"],
             "model_grid": list(grid), "tiles_per_submodel": per_model,
             "tiles": spans["tiles"],
-            "accum_dtype": "float16" if fp32_bytes > 2e9 else "float32",
-            "fp32_logit_bytes": fp32_bytes, "checkpoint_loads": store.loads,
+            # sub-models whose predictor accumulated in float16 (last run)
+            "float16_accumulators": spans["float16_accumulators"],
+            "checkpoint_loads": store.loads,
             "labels_present": int(len(np.unique(seg))), "parts": _parts_of(seg),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "spans": runs[-1]["spans"], "launches": runs[-1]["launches"],
@@ -770,7 +783,89 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
             res["study"]["profile"] = _profile(
                 torch, lambda: predict_image(img, "total", store))
     emit({"phase": "total", "part": "study", **res["study"]})
+
+    # --- (d) the general predictor path at full width: liver_vessels at the
+    #     total_fast widths (128^3 patch, 1 mm plan) on a liver-sized box of
+    #     the 512x512x300 CT, against the same run on the plain composite
+    res["crop_full"] = _crop_full(torch, rc, pc, img)
+    emit({"phase": "total", "part": "crop_full", **res["crop_full"]})
     return res
+
+
+def _crop_full(torch, rc, pc, img) -> dict:
+    """(d) of the total phase: one warm-up and one timed run of
+    `predict_image(img, "liver_vessels", store, crop_mask=...)` with
+    full-width weights (seconds, spans, peak memory, launches), then one run
+    with the cached models' forward switched to the plain versions of
+    K1-K3 (`rc.PLAIN`) on the card: labels agree > 0.99."""
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.inference.predictor import load_stacked_cached
+    from boa_tpu_torch.io.nifti import NiftiImage
+    from boa_tpu_torch.models.unet import PlainConvUNet
+    from boa_tpu_torch.ops import cropping
+    from boa_tpu_torch.tasks.registry import get_task
+    from boa_tpu_torch.weights.store import ModelStore
+
+    class PlainComposite(PlainConvUNet):
+        """The composite forward on the plain versions of its kernels."""
+
+        def forward(self, x, ops=rc.PLAIN):
+            return super().forward(x, ops)
+
+    task = get_task("liver_vessels")
+    # about 200 x 160 x 170 mm, the liver's extent in an adult CT
+    mask = np.zeros(img.shape, np.uint8)
+    mask[190:323, 200:307, 120:177] = 1
+    crop = NiftiImage(data=mask, affine=img.affine.copy())
+    with tempfile.TemporaryDirectory() as tmp:
+        _synthetic(tmp, 8, "liver_vessels", task.trainer, 3, TOTAL_FAST_FEATURES,
+                   (128, 128, 128), (1.0, 1.0, 1.0))
+        store = ModelStore(tmp)
+        seconds = []
+        for _ in range(2):
+            spans: dict = {}
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rc.reset_launches()
+            pc.reset_launches()
+            t0 = time.perf_counter()
+            seg = predict_image(img, "liver_vessels", store, crop_mask=crop,
+                                spans=spans).seg.data
+            seconds.append(time.perf_counter() - t0)
+            got = dict(rc.LAUNCHES, **pc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        _, models = load_stacked_cached(store, 8, task.trainer, task.model,
+                                        task.folds, "cuda")
+        for m in models:
+            m.__class__ = PlainComposite
+        rc.reset_launches()
+        try:
+            ref = predict_image(img, "liver_vessels", store, crop_mask=crop).seg.data
+        finally:
+            for m in models:
+                m.__class__ = PlainConvUNet
+        ref_launches = sum(rc.LAUNCHES.values())
+    tiles = spans["tiles"]
+    want = _want_launches(tiles, _rows_finish(torch, pc, tiles, (128, 128, 128),
+                                              TOTAL_FAST_FEATURES[0]))
+    box = cropping.get_bbox_from_mask(mask, addon=(np.array(task.crop_addon)
+                                                   / np.array(img.zooms)).astype(int))
+    inside = np.zeros(mask.shape, bool)
+    inside[tuple(slice(a, b) for a, b in box)] = True
+    out = {"agree_plain": float((seg == ref).mean()),
+           "agree_plain_in_box": float((seg[inside] == ref[inside]).mean()),
+           "sec": seconds[1], "warmup_s": seconds[0], "tiles": tiles,
+           "box": [[int(a), int(b)] for a, b in box],
+           "float16_accumulators": spans["float16_accumulators"],
+           "resident_gib": resident / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
+           "labels": sorted(int(v) for v in np.unique(seg)),
+           "spans": spans, "launches": got}
+    assert seg.shape == img.shape and not seg[~inside].any()
+    assert got == want and tiles > 0, (got, want)
+    assert ref_launches == 0, ref_launches   # the reference ran no kernel
+    assert out["agree_plain_in_box"] > 0.99, out
+    return out
 
 
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:

@@ -78,6 +78,7 @@ def test_fp16_accumulator_and_bucket():
     l32 = p32.predict_logits(vol).numpy()
     l16 = p16.predict_logits(vol).float().numpy()
     assert p16.predict_logits(vol).dtype == torch.float16
+    assert (p16.accum_used, p32.accum_used) == (torch.float16, torch.float32)
     # tile-corner voxels carry float16-subnormal weights that underflow, in
     # the reference too: compare the interior
     c = (slice(None), slice(2, -2), slice(2, -2), slice(2, -2))
@@ -99,6 +100,7 @@ def test_fp16_accumulator_and_bucket():
     # the fused path pads to the bucket too
     seg = pb.predict(vol[0] * 300 + 50, (3.0, 3.0, 3.0))
     assert seg.shape == (21, 19, 17) and pb.n_tiles == 27  # 3 per axis of 32
+    assert pb.accum_used == torch.float32
 
 
 @pytest.mark.parametrize("spacing", [(2.0, 2.0, 2.0), (2.0, 2.0, 7.0)])

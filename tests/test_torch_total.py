@@ -277,6 +277,7 @@ def test_real_total_matches_reference(total_stores, plan_spacing, dtype, bar):
     assert len(parts) >= 3  # the merge saw labels of several sub-models
     assert all(f"predict_{t}" in spans for t in PARTS)
     assert spans["tiles"] == (5 if plan_spacing == 6.0 else 5 * 12)
+    assert spans["float16_accumulators"] == 0   # small logit volumes: float32
 
 
 @pytest.fixture(scope="module")
