@@ -8,14 +8,14 @@ the device -> one prediction per sub-model, merged into the task's label
 space by a device LUT (later sub-models over earlier ones) -> strip
 auxiliary labels, blob postprocessing on the host -> order-0 (or one-hot
 order-1) back-resample and inverse orientation -> pad back / undo the crop
--> remove labels outside the dilated crop mask. Statistics wait for M7 and
-raise.
+-> remove labels outside the dilated crop mask. With `statistics=True`, the
+per-class volumes and intensities on the model grid, from the device labels
+and the resampled CT (measure/statistics.py).
 """
 
 from __future__ import annotations
 
 import pickle
-import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
@@ -27,11 +27,13 @@ from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.inference.predictor import Predictor, load_stacked_cached
 from boa_tpu_torch.io import nifti
 from boa_tpu_torch.io.nifti import NiftiImage
+from boa_tpu_torch.measure.statistics import get_basic_statistics
 from boa_tpu_torch.ops import cropping, packing
 from boa_tpu_torch.ops import postprocessing as pped
 from boa_tpu_torch.ops import resample as rs
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.tasks.registry import TaskConfig, resolve_task
+from boa_tpu_torch.utils.timing import Spans
 
 # registry name -> class map key
 _CLASS_MAP_KEY = {
@@ -53,31 +55,10 @@ def class_map_for_task(task_name: str) -> dict[int, str]:
 class PredictImageResult:
     seg: NiftiImage                    # labels on the input grid
     seg_model_grid: NiftiImage | None  # labels on the model grid
+    stats: dict | None = None          # statistics=True: {name: {volume, intensity}}
     label_map: dict[int, str] = field(default_factory=dict)
     # `seg.data` as a device tensor (keep_device_seg=True, no crop mask)
     seg_dev_full: torch.Tensor | None = None
-
-
-class _Spans:
-    """Per-stage wall seconds into `out` (when given); each mark waits for
-    the device so a stage's time is its own."""
-
-    def __init__(self, out: dict | None, device: torch.device) -> None:
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
-
-    def mark(self, label: str) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.add(label, now - self.t)
-        self.t = now
-
-    def add(self, label: str, value) -> None:
-        if self.out is not None:
-            self.out[label] = self.out.get(label, 0) + value
 
 
 def _empty_result(img: NiftiImage, label_map: dict[int, str]) -> PredictImageResult:
@@ -131,6 +112,9 @@ def predict_image(
     fake_predict: Callable[[np.ndarray, tuple, int], np.ndarray] | None = None,
     remove_small_blobs: bool = False,
     save_probabilities=None,
+    stats_aggregation: str = "mean",
+    stats_normalized_intensities: bool = False,
+    stats_exclude_border: bool = True,
     keep_device_seg: bool = False,
     device=None,
     spans: dict | None = None,
@@ -147,21 +131,21 @@ def predict_image(
     save_probabilities writes the model grid's float16 class probabilities
     to this `.npz` path (+ a `.pkl` of properties), with a `_{task_id}`
     suffix per sub-model. keep_device_seg also returns the labels as a
-    device tensor (`seg_dev_full`) where no crop mask is given. `spans`,
+    device tensor (`seg_dev_full`) where no crop mask is given.
+    statistics=True returns `stats` of the postprocessed labels on the model
+    grid: the `stats_aggregation` ("mean" or "median") HU of each class, of
+    the min-max-normalized CT with `stats_normalized_intensities`, and 0 for
+    a class on the 3-voxel margin with `stats_exclude_border`. `spans`,
     when given, receives the wall seconds of each stage (`predict_{tid}`
     per sub-model), the tile count of all sub-models ("tiles") and the
-    number of them that accumulated in float16 ("float16_accumulators").
-    The reference's `stats_*` options arrive with statistics (M7)."""
-    if statistics:
-        raise NotImplementedError("statistics=True waits for M7 "
-                                  "(measure/statistics.py)")
+    number of them that accumulated in float16 ("float16_accumulators")."""
     device = resolve_device(device)
     task = resolve_task(task_name, fast=fast)
     label_map = class_map_for_task(task.name)
     max_label = int(max(label_map))
     if img.data.ndim > 3:
         img = NiftiImage(data=np.asarray(img.data)[..., 0], affine=img.affine)
-    sp = _Spans(spans, device)
+    sp = Spans(spans, device)
 
     # --- crop to an organ mask from an earlier run (the crop cascade)
     img_orig = img
@@ -307,6 +291,15 @@ def predict_image(
     seg_model_grid = NiftiImage(data=_seg_host(), affine=rsp_affine)
     sp.mark("download+postprocess")
 
+    # --- statistics on the model grid, on the device
+    stats = None
+    if statistics:
+        stats = get_basic_statistics(
+            _seg_dev(), data_rsp, rsp_spacing, label_map,
+            exclude_masks_at_border=stats_exclude_border, metric=stats_aggregation,
+            normalized_intensities=stats_normalized_intensities)
+        sp.mark("statistics")
+
     # --- back to the input grid: a finer model grid is downsampled on the
     #     device and the small seg moved; a coarser one moves first
     keep_dev = keep_device_seg and bbox is None and task.remove_outside is None
@@ -365,14 +358,14 @@ def predict_image(
     seg_out.set_label_map(label_map)
     sp.mark("back_resample+pad")
     return PredictImageResult(seg=seg_out, seg_model_grid=seg_model_grid,
-                              label_map=label_map,
+                              stats=stats, label_map=label_map,
                               seg_dev_full=seg_out_dev if keep_dev else None)
 
 
 def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, *,
                  task: TaskConfig, folds, step_size: float, store,
                  compute_dtype: str, fake_predict, bucket: int | None,
-                 fake_geom: tuple | None, device: torch.device, sp: _Spans,
+                 fake_geom: tuple | None, device: torch.device, sp: Spans,
                  save_probabilities: Path | None = None,
                  fake_cache: dict | None = None):
     """Labels of one (sub-)model on the model grid: a device tensor from the

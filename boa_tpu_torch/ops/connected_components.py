@@ -1,9 +1,10 @@
 """Connected components on the host.
 
 Counterpart of `boa_tpu/ops/connected_components.py` (`label`,
-`largest_component`, `filter_components_by_size`) on `scipy.ndimage.label`,
-the reference's own substrate (the JAX package's native union-find library
-is not used by the port). Connectivity 1 = 6-neighbourhood, 3 = 26.
+`largest_component`, `filter_components_by_size`, `histogram_u8`, `minmax`)
+on `scipy.ndimage.label` and numpy, the reference's own substrate (the JAX
+package's native union-find library is not used by the port). Connectivity
+1 = 6-neighbourhood, 3 = 26.
 """
 
 from __future__ import annotations
@@ -36,3 +37,13 @@ def filter_components_by_size(mask: np.ndarray, interval,
     keep = (sizes > interval[0]) & (sizes <= interval[1])
     keep[0] = False
     return keep[labels].astype(np.uint8)
+
+
+def histogram_u8(data: np.ndarray) -> np.ndarray:
+    """256-bin histogram of a uint8 array."""
+    return np.bincount(np.ravel(data), minlength=256)[:256]
+
+
+def minmax(data: np.ndarray) -> tuple[float, float]:
+    """(min, max) of an array."""
+    return float(data.min()), float(data.max())

@@ -57,12 +57,30 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               run on the plain composite. Every run's launches equal tiles x
               (4, 1, 1) with no K5 launch, and K1's finishing launches are
               those its split plan gives (three a tile at 32^3, none at 128^3)
+7. measure  - the measurement path from a CT file to the study's files:
+              (a) `compute_all_models(ct_path, out, ["total"])` with the small
+              five-model store of 6 (a) on a 96x96x64 `.nii.gz` written by the
+              port's codec, on the card and on the CPU: total.nii.gz,
+              ct_pfav.nii.gz, total-statistics.json and total-measurements.json
+              exist and load, labels agree > 0.99, launches as in 6 (a); (b) the
+              measurement engine at 512x512x300 (every `total` class, the
+              autochthon, aorta and lung lobes in blocks with muscle, contrast
+              and fat HU): `get_basic_statistics` (mean, median) and
+              `compute_measurements_arrays` (CNR adjustment) on the card against
+              the same calls on the CPU, statistics equal, histogram-derived
+              numbers equal, masked moments within 1e-6 relative, the seconds of
+              each span; (c) the 512x512x300 study from its file at the
+              total_fast widths through `compute_all_models`: one warm-up and one
+              timed run with spans (load, body_crop, predict_291 ...
+              predict_295, statistics, save, the engine's), peak memory and the
+              launches of 6 (c)
 
 With --profile, the fused, study and total phases each add one more run
-under torch.profiler (device busy share, kernels by device time). With
---phases=a,b (of kernels, forward, fused, study, total) only those phases
-run after the device phase, and the kernel summary line is left out. Each
-phase prints one JSON line (the total phase one per part). Then come the
+under torch.profiler (device busy share, kernels by device time), and the
+measure phase one more run of (b) on the card. With --phases=a,b (of
+kernels, forward, fused, study, total, measure) only those phases run after
+the device phase, and the kernel summary line is left out. Each phase
+prints one JSON line (the total and measure phases one per part). Then come the
 kernel summary line {"kernels": [...]} (K1-K3's `launches` are the fast
 study's, `launches_total` the full total study's) and, last,
 {"ok": true, "device": {...}}. Any failed
@@ -82,9 +100,11 @@ import time
 
 import numpy as np
 
+ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
+STUDY_SHAPE = (512, 512, 300)   # the bench's CT, as the measure phase's (b) and (c) use it
 PART_IDS = (291, 292, 293, 294, 295)   # the sub-models of `total`, merged in order
 BACKGROUND_LEAD = 1.0   # background's head bias over the largest other, per part
 REPLACES = {
@@ -657,6 +677,22 @@ def _parts_store(tmp, features, patch, spacing) -> "_CountingStore":
     return _CountingStore(tmp)
 
 
+_SHARED_STORES: dict = {}
+
+
+def _shared_parts_store(features, patch) -> "_CountingStore":
+    """`_parts_store` at 1.5 mm, written once per run of this script (its
+    folder lives until the script exits) and shared by the total and
+    measure phases: a full-width store takes a minute to write. Its load
+    count covers every phase that used it."""
+    key = (tuple(features), tuple(patch))
+    if key not in _SHARED_STORES:
+        folder = tempfile.TemporaryDirectory()
+        _SHARED_STORES[key] = (folder, _parts_store(folder.name, features, patch,
+                                                    (1.5, 1.5, 1.5)))
+    return _SHARED_STORES[key][1]
+
+
 def _parts_of(seg) -> list[str]:
     """The sub-models (parts) whose labels appear in a `total` label volume."""
     from boa_tpu_torch.tasks import class_maps
@@ -676,7 +712,9 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
     from boa_tpu_torch.inference.pipeline import predict_image
     from boa_tpu_torch.io.nifti import NiftiImage
     from boa_tpu_torch.ops import cropping
+    from boa_tpu_torch.ops import cropping
     from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.ops import resample as rs
     from boa_tpu_torch.tasks.class_maps import get_class_map
     from boa_tpu_torch.tasks.registry import get_task
 
@@ -743,45 +781,44 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
 
     # --- (c) the 512x512x300 study at the total_fast widths
     shape, spacing = (512, 512, 300), (1.5, 1.5, 3.0)
-    with tempfile.TemporaryDirectory() as tmp:
-        store = _parts_store(tmp, TOTAL_FAST_FEATURES, (128, 128, 128), (1.5, 1.5, 1.5))
-        img = _bench_ct(shape, spacing)
-        times, runs = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(3):
-            spans = {}
-            reset()
-            t0 = time.perf_counter()
-            r = predict_image(img, "total", store, spans=spans)
-            dt = time.perf_counter() - t0
-            got = launches()
-            grid = tuple(r.seg_model_grid.shape)
-            per_model = len(pp.tile_starts(tuple(max(n, 128) for n in grid),
-                                           (128, 128, 128), 0.8))
-            assert spans["tiles"] == len(PART_IDS) * per_model, (spans, per_model)
-            assert got == _want_launches(spans["tiles"]), got
-            seg = r.seg.data
-            assert seg.shape == shape and seg.dtype == np.uint8
-            assert set(np.unique(seg)) - {0} <= total_labels
-            runs.append({"s": dt, "spans": spans, "launches": got})
-            if i > 0:
-                times.append(dt)
-        res["study"] = {
-            "sec_min": min(times), "sec_median": statistics.median(times),
-            "timed_runs": len(times), "warmup_s": runs[0]["s"],
-            "model_grid": list(grid), "tiles_per_submodel": per_model,
-            "tiles": spans["tiles"],
-            # sub-models whose predictor accumulated in float16 (last run)
-            "float16_accumulators": spans["float16_accumulators"],
-            "checkpoint_loads": store.loads,
-            "labels_present": int(len(np.unique(seg))), "parts": _parts_of(seg),
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "spans": runs[-1]["spans"], "launches": runs[-1]["launches"],
-            "seconds_all": [x["s"] for x in runs]}
-        assert store.loads == len(PART_IDS), store.loads
-        if profile_run:
-            res["study"]["profile"] = _profile(
-                torch, lambda: predict_image(img, "total", store))
+    store = _shared_parts_store(TOTAL_FAST_FEATURES, (128, 128, 128))
+    img = _bench_ct(shape, spacing)
+    times, runs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        spans = {}
+        reset()
+        t0 = time.perf_counter()
+        r = predict_image(img, "total", store, spans=spans)
+        dt = time.perf_counter() - t0
+        got = launches()
+        grid = tuple(r.seg_model_grid.shape)
+        per_model = len(pp.tile_starts(tuple(max(n, 128) for n in grid),
+                                       (128, 128, 128), 0.8))
+        assert spans["tiles"] == len(PART_IDS) * per_model, (spans, per_model)
+        assert got == _want_launches(spans["tiles"]), got
+        seg = r.seg.data
+        assert seg.shape == shape and seg.dtype == np.uint8
+        assert set(np.unique(seg)) - {0} <= total_labels
+        runs.append({"s": dt, "spans": spans, "launches": got})
+        if i > 0:
+            times.append(dt)
+    res["study"] = {
+        "sec_min": min(times), "sec_median": statistics.median(times),
+        "timed_runs": len(times), "warmup_s": runs[0]["s"],
+        "model_grid": list(grid), "tiles_per_submodel": per_model,
+        "tiles": spans["tiles"],
+        # sub-models whose predictor accumulated in float16 (last run)
+        "float16_accumulators": spans["float16_accumulators"],
+        "checkpoint_loads": store.loads,
+        "labels_present": int(len(np.unique(seg))), "parts": _parts_of(seg),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "spans": runs[-1]["spans"], "launches": runs[-1]["launches"],
+        "seconds_all": [x["s"] for x in runs]}
+    assert store.loads == len(PART_IDS), store.loads
+    if profile_run:
+        res["study"]["profile"] = _profile(
+            torch, lambda: predict_image(img, "total", store))
     emit({"phase": "total", "part": "study", **res["study"]})
 
     # --- (d) the general predictor path at full width: liver_vessels at the
@@ -868,6 +905,239 @@ def _crop_full(torch, rc, pc, img) -> dict:
     return out
 
 
+# exact in both runs of the measurement engine: counts, volumes and every
+# number read off a histogram; the masked moments (the autochthon's mean
+# and std) and the CNRs derived from them within 1e-6 relative
+_EXACT = ("present", "volume_ml", "mean_hu", "std_hu", "min_hu", "max_hu", "median_hu",
+          "25th_percentile_hu", "75th_percentile_hu")
+
+
+def _max_rel(a, b, path="") -> float:
+    """Walk two measurement dicts of the same structure: fields in `_EXACT`,
+    flags and Nones must be equal; returns the largest relative difference
+    of the other numbers."""
+    if isinstance(b, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"measurement keys differ at {path}")
+        return max([_max_rel(a[k], b[k], f"{path}/{k}") for k in b] + [0.0])
+    if b is None or isinstance(b, bool) or path.rsplit("/", 1)[-1] in _EXACT:
+        if a != b:
+            raise AssertionError(f"measurement {path}: {a} != {b}")
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def _measure_volume(shape, spacing):
+    """(CT, labels) for the measurement engine at `shape`: the bench CT;
+    labels in 8^3 blocks of every `total` class over the body, then blocks of
+    the autochthon (muscle HU), the aorta (contrast HU) and the five lung
+    lobes (lung HU, fat HU in their first third), as tests/test_measurements.py
+    lays them out at a small size. Box corners are given on 512x512x300 and
+    scaled to `shape`."""
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+
+    inv = {v: k for k, v in get_class_map("total").items()}
+    ct = np.array(_bench_ct(shape, spacing).data)
+    rng = np.random.default_rng(21)
+    coarse = rng.integers(0, 118, tuple(-(-n // 8) for n in shape)).astype(np.uint8)
+    seg = coarse.repeat(8, 0).repeat(8, 1).repeat(8, 2)[:shape[0], :shape[1], :shape[2]]
+    seg = np.ascontiguousarray(seg)
+    seg[ct < -500] = 0
+
+    def paint(name, box, lo, hi, fat_share=0.0):
+        box = tuple(slice(a * n // m, b * n // m)
+                    for (a, b), n, m in zip(box, shape, (512, 512, 300)))
+        seg[box] = inv[name]
+        part = ct[box]
+        part[...] = rng.integers(lo, hi, part.shape)
+        nfat = int(part.shape[0] * fat_share)
+        part[:nfat] = rng.integers(-200, -39, part[:nfat].shape)
+
+    paint("autochthon_left", ((200, 250), (300, 380), (40, 260)), 20, 80)
+    paint("autochthon_right", ((262, 312), (300, 380), (40, 260)), 20, 80)
+    paint("aorta", ((240, 272), (200, 232), (20, 280)), 150, 350)
+    for name, box in [
+            ("lung_upper_lobe_left", ((140, 220), (130, 200), (200, 290))),
+            ("lung_lower_lobe_left", ((140, 220), (130, 200), (150, 200))),
+            ("lung_upper_lobe_right", ((300, 380), (130, 200), (230, 290))),
+            ("lung_middle_lobe_right", ((300, 380), (130, 200), (190, 230))),
+            ("lung_lower_lobe_right", ((300, 380), (130, 200), (150, 190)))]:
+        paint(name, box, -900, -700, fat_share=1 / 3)
+    return ct, seg
+
+
+def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
+    """The measurement path. (a) `compute_all_models(ct_path, out, ["total"])`
+    on the small five-model store (widths 32/64/128, 32^3 patch) from a
+    96x96x64 `.nii.gz` written by the port's codec, on the card and on the
+    CPU: every promised file exists and loads, labels agree > 0.99, launches
+    tiles x (4, 1, 1) with the split plan's finishing passes; (b) the
+    measurement engine at 512x512x300 (`get_basic_statistics` mean and
+    median, `compute_measurements_arrays` with the CNR adjustment) on the
+    card against the same calls on the CPU, with the seconds of each span;
+    (c) the 512x512x300 study from its file to total.nii.gz, its statistics
+    and total-measurements.json at the total_fast widths: one warm-up and
+    one timed run (seconds, spans, peak memory, launches as the total
+    phase's)."""
+    import json
+    from pathlib import Path
+
+    from boa_tpu_torch.compute.inference import compute_all_models
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.measure import measurements as ms
+    from boa_tpu_torch.measure.statistics import get_basic_statistics
+    from boa_tpu_torch.ops import cropping
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.ops import resample as rs
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+
+    total_map = get_class_map("total")
+    promised = ("total.nii.gz", "ct_pfav.nii.gz", "total-statistics.json",
+                "total-measurements.json")
+    res = {}
+
+    def launches() -> dict:
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset() -> None:
+        rc.reset_launches()
+        pc.reset_launches()
+
+    def outputs(folder: Path, shape) -> dict:
+        """Every promised file loads; the labels and the JSONs make sense."""
+        seg = nifti.load(folder / "total.nii.gz").data
+        pfav = nifti.load(folder / "ct_pfav.nii.gz").data
+        stats = json.loads((folder / "total-statistics.json").read_text())
+        meas = json.loads((folder / "total-measurements.json").read_text())
+        assert sorted(p.name for p in folder.iterdir()) == sorted(promised)
+        assert seg.shape == pfav.shape == shape and seg.dtype == np.uint8
+        assert set(np.unique(seg)) - {0} <= set(total_map) and set(np.unique(pfav)) <= {0, 1}
+        assert list(stats) == list(total_map.values())
+        assert set(meas["segmentations"]["total"]) >= set(total_map.values())
+        return {"labels": seg, "labels_present": int(len(np.unique(seg))),
+                "stats_nonzero": sum(v["volume"] > 0 for v in stats.values()),
+                "regions_present": sum(m["present"] for m in
+                                       meas["segmentations"]["total"].values())}
+
+    # --- (a) small file-to-files run, card against the CPU
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        store = _parts_store(tmp, (32, 64, 128), (32, 32, 32), (1.5, 1.5, 1.5))
+        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        nifti.save(img, tmp / "ct.nii.gz")
+        spans: dict = {}
+        reset()
+        compute_all_models(tmp / "ct.nii.gz", tmp / "gpu", ["total"], store=store,
+                           device="cuda", spans=spans)
+        got = launches()
+        compute_all_models(tmp / "ct.nii.gz", tmp / "cpu", ["total"], store=store,
+                           device="cpu")
+        gpu, cpu = outputs(tmp / "gpu", img.shape), outputs(tmp / "cpu", img.shape)
+        want = _want_launches(spans["tiles"], _rows_finish(torch, pc, spans["tiles"],
+                                                           (32, 32, 32), 32))
+        res["small"] = {"agree": float((gpu.pop("labels") == cpu.pop("labels")).mean()),
+                        "tiles": spans["tiles"], "launches": got, "gpu": gpu, "cpu": cpu,
+                        "files": list(promised), "part_s": time.perf_counter() - t_part}
+        emit({"phase": "measure", "part": "small", **res["small"]})
+        assert got == want, (got, want)
+        assert res["small"]["agree"] > 0.99, res["small"]
+
+    # --- (b) the measurement engine at 512x512x300, card against the CPU
+    t_part = time.perf_counter()
+    shape, spacing = STUDY_SHAPE, (1.5, 1.5, 3.0)
+    ct, seg = _measure_volume(shape, spacing)
+    assert len(np.unique(seg)) == len(total_map) + 1   # every class is there
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    ct_dev, seg_dev = torch.from_numpy(ct).to(dev), torch.from_numpy(seg).to(dev)
+
+    def engine(device):
+        """The three calls on `device`, with their seconds and spans."""
+        on_card = device == "cuda"
+        kw = ({"ct_dev": ct_dev, "seg_devs": {"total": seg_dev}} if on_card
+              else {"device": "cpu"})
+        args = (seg_dev, ct_dev) if on_card else (seg, ct)
+        out, sec, spans = {}, {}, {}
+        for metric in ("mean", "median"):
+            t0 = time.perf_counter()
+            out[metric] = get_basic_statistics(*args, spacing, total_map, metric=metric,
+                                               device=device)
+            sec[f"statistics_{metric}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["measurements"] = ms.compute_measurements_arrays(
+            ct, {"total": seg}, spacing, cnr_adjustment=True, spans=spans, **kw)
+        sec["measurements"] = time.perf_counter() - t0
+        return out, sec, spans
+
+    engine("cuda")   # warm-up: first launches of each kernel
+    torch.cuda.reset_peak_memory_stats()
+    gpu, gpu_sec, gpu_spans = engine("cuda")
+    peak = torch.cuda.max_memory_allocated() - resident
+    cpu, cpu_sec, cpu_spans = engine("cpu")
+    meas = gpu["measurements"]
+    res["engine"] = {
+        "voxels": int(np.prod(shape)), "gpu_s": gpu_sec, "gpu_spans": gpu_spans,
+        "cpu_s": cpu_sec, "cpu_spans": cpu_spans, "cpu_sub_box": False,
+        "peak_mem_gib_with_inputs": peak / 2 ** 30,
+        "masked_moment_max_rel": _max_rel(meas, cpu["measurements"]),
+        "autochthon": meas["info"],
+        "cnr_adjusted_ml": {k: v.get("volume_ml") for k, v in meas["cnr_adjusted"].items()},
+        "regions_present": sum(m["present"] for m in meas["segmentations"]["total"].values())}
+    if profile_run:
+        res["engine"]["profile"] = _profile(torch, lambda: engine("cuda"))
+    res["engine"]["part_s"] = time.perf_counter() - t_part
+    emit({"phase": "measure", "part": "engine", **res["engine"]})
+    for metric in ("mean", "median"):
+        assert gpu[metric] == cpu[metric], metric   # volumes and intensities
+    assert res["engine"]["masked_moment_max_rel"] <= 1e-6, res["engine"]
+    assert meas["info"]["autochthon_mean"] is not None
+    assert all(m["present"] for m in meas["cnr_adjusted"].values()), meas["cnr_adjusted"]
+    assert meas["segmentations"]["total"]["ct_pfav_lungs"]["present"]
+    del ct_dev, seg_dev
+
+    # --- (c) the 512x512x300 study from its file, at the total_fast widths
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        patch = (128, 128, 128)
+        store = _shared_parts_store(TOTAL_FAST_FEATURES, patch)
+        img = _bench_ct(shape, spacing)
+        nifti.save(img, tmp / "ct.nii.gz")
+        # the model grid: the body crop at 1.5 mm
+        cut = nifti.canonical_geometry(cropping.body_crop_xy(img)[0])
+        grid = rs.change_spacing_shape(cut[2], cut[3], (1.5, 1.5, 1.5))[0]
+        grid_tiles = len(PART_IDS) * len(pp.tile_starts(
+            tuple(max(n, p) for n, p in zip(grid, patch)), patch, 0.8))
+        runs = []
+        for i in range(2):
+            spans = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            compute_all_models(tmp / "ct.nii.gz", tmp / f"out{i}", ["total"], store=store,
+                               spans=spans)
+            dt = time.perf_counter() - t0
+            runs.append({"s": dt, "spans": spans, "launches": launches(),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        out = outputs(tmp / "out1", shape)
+        out.pop("labels")
+        res["study"] = {"sec": runs[1]["s"], "warmup_s": runs[0]["s"],
+                        "model_grid": [int(n) for n in grid],
+                        "peak_mem_gib": runs[1]["peak_mem_gib"], "spans": runs[1]["spans"],
+                        "launches": runs[1]["launches"], "tiles": spans["tiles"],
+                        "checkpoint_loads": store.loads, **out,
+                        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "measure", "part": "study", **res["study"]})
+    for r in runs:
+        assert r["spans"]["tiles"] == grid_tiles, (r["spans"]["tiles"], grid_tiles)
+        assert r["launches"] == _want_launches(grid_tiles), r["launches"]
+    assert store.loads == len(PART_IDS), store.loads
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -922,10 +1192,14 @@ def main() -> int:
 
     resolve_device("cuda")  # pins the float32 precision flags
     profile_run = "--profile" in sys.argv[1:]
-    phases = ("kernels", "forward", "fused", "study", "total")
+    phases = ALL_PHASES
     for arg in sys.argv[1:]:
         if arg.startswith("--phases="):
             phases = tuple(arg.split("=", 1)[1].split(","))
+    unknown = set(phases) - set(ALL_PHASES)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
     phase_device(torch, _build)
     if "kernels" in phases:
         cases = phase_kernels(torch, rc)
@@ -937,7 +1211,9 @@ def main() -> int:
         study = phase_study(torch, rc, pc, profile_run)
     if "total" in phases:
         total = phase_total(torch, rc, pc, profile_run)
-    if len(phases) == 5:
+    if "measure" in phases:
+        phase_measure(torch, rc, pc, profile_run)
+    if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

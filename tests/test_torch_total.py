@@ -132,6 +132,15 @@ def _run(task, fake, mask_box=None, body=False, **kw):
 
 
 def _same(ref, got):
+    if ref.stats is None:
+        assert got.stats is None
+    else:   # volumes equal, intensities within 1e-3 HU (the reference sums in float32)
+        assert list(got.stats) == list(ref.stats)
+        for name, want in ref.stats.items():
+            assert got.stats[name]["volume"] == want["volume"], name
+            np.testing.assert_allclose(got.stats[name]["intensity"], want["intensity"],
+                                       atol=1e-3)
+        assert sum(w["volume"] > 0 for w in ref.stats.values()) > 5
     np.testing.assert_array_equal(got.seg.data, np.asarray(ref.seg.data))
     assert got.seg.data.dtype == np.uint8
     np.testing.assert_allclose(got.seg.affine, ref.seg.affine)
@@ -147,7 +156,8 @@ def _same(ref, got):
 
 @pytest.mark.parametrize("case", ["merge", "total_space", "crop_mask", "empty_crop",
                                   "keep_device_seg", "nnunet_resampling",
-                                  "remove_small_blobs", "remove_outside", "body_crop"])
+                                  "remove_small_blobs", "remove_outside", "body_crop",
+                                  "statistics", "statistics_options"])
 def test_fake_pipeline_matches_reference(case):
     box = (slice(10, 25), slice(12, 26), slice(8, 20))
     if case == "merge":
@@ -188,6 +198,15 @@ def test_fake_pipeline_matches_reference(case):
         ref, got = _run("total", _speckle_fake, remove_small_blobs=True, fast=True)
         assert (got.seg_model_grid.data == 7).sum() < (_speckle_fake(
             got.seg_model_grid.data, None, 0) == 7).sum() / 2
+    elif case == "statistics":
+        # the five-model merge's labels and the resampled CT on the 1.5 mm grid
+        ref, got = _run("total", _part_fake, statistics=True)
+    elif case == "statistics_options":
+        ref, got = _run("total", lambda v, s, t: _blocks(v.shape, 13, 118, 3),
+                        statistics=True, fast=True,
+                        stats_aggregation="median", stats_normalized_intensities=True,
+                        stats_exclude_border=False, body=True)
+        assert all(0.0 <= v["intensity"] <= 1.0 for v in got.stats.values())
     elif case == "body_crop":
         ref, got = _run("total", lambda v, s, t: _blocks(v.shape, 12, 30, 3),
                         body=True, fast=True, keep_device_seg=True)
