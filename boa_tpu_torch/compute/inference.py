@@ -1,4 +1,4 @@
-"""Model-run driver: the TotalSegmentator models of one CT study, from
+"""Model runs over one CT study: the TotalSegmentator models, from
 the CT file to the segmentation, statistics and measurement files.
 
 Counterpart of `boa_tpu/compute/inference.py` (body_organ_analysis

@@ -1,4 +1,4 @@
-"""The port's study driver (boa_tpu_torch/compute/inference.py
+"""The port's study orchestration (boa_tpu_torch/compute/inference.py
 `compute_all_models`) against the reference's (boa_tpu/compute/inference.py),
 through the fake-predict hook on a small CT file with a body crop, on the
 CPU: `total` (fast) and the crop task `liver_vessels`.
