@@ -173,7 +173,7 @@ def compute_all_models(
             ct_path=pathlib.Path(ct_path), segmentation_folder=segmentation_folder,
             models=models_to_compute, cnr_adjustment=cnr_adjustment,
             ct_image=ct_img, seg_images=seg_cache, worker=worker,
-            device=device, spans=spans)
+            device=device, spans=spans, save_futures=save_futures)
         sp.restart()
         with measurement_file.open("w") as f:
             json.dump(json_data, f, indent=2, default=np_json_default)

@@ -301,11 +301,14 @@ def compute_measurements(
     worker=None,
     device=None,
     spans: dict | None = None,
+    save_futures: list | None = None,
 ) -> dict[str, Any]:
     """File-level wrapper: reads the CT and each model's segmentation from
     `segmentation_folder` (or takes the images in `seg_images`, with their
     cached device copies), measures on `device` (default the card) and
-    writes ct_pfav.nii.gz when `total` is present (on `worker` when given).
+    writes ct_pfav.nii.gz when `total` is present. With `worker` the save
+    runs there and its Future is appended to `save_futures`, for the caller
+    to wait on; without a list, `worker.barrier()` waits for it.
     `spans` as in `compute_measurements_arrays`, plus `measure_inputs` (the
     files read or the images' device copies taken), `pfav` and `save`."""
     from boa_tpu_torch.io import nifti
@@ -354,7 +357,9 @@ def compute_measurements(
         img = nifti.NiftiImage(data=pfav, affine=ct_img.affine, crop_info=ct_img.crop_info)
         pfav_path = Path(segmentation_folder) / "ct_pfav.nii.gz"
         if worker is not None:
-            worker.submit("save-ct_pfav.nii.gz", nifti.save, img, pfav_path)
+            fut = worker.submit("save-ct_pfav.nii.gz", nifti.save, img, pfav_path)
+            if save_futures is not None:
+                save_futures.append(fut)
         else:
             nifti.save(img, pfav_path)
         sp.mark("save")

@@ -1,21 +1,19 @@
 """Background host-stage worker for the study orchestrator.
 
 Counterpart of `boa_tpu/utils/stages.py`. ONE background thread runs
-pure-host stages (gzip saves, host postprocessing) while the calling thread
-keeps launching device work, which mostly waits on the card with the
-interpreter lock released.
+pure-host stages (gzip saves) while the calling thread keeps launching
+device work, which mostly waits on the card with the interpreter lock
+released. Without a worker (`worker=None` at the call sites) the stages run
+inline.
 
 Rule kept by convention (not by the class): never submit work that
 launches on the card, so that the device's order stays that of the calling
 thread; submitted callables touch only host memory and disk.
-
-`BOA_SERIAL_STAGES=1` disables the thread (submit runs inline).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from time import perf_counter
 from typing import Any, Callable
@@ -28,51 +26,32 @@ class HostWorker:
 
     - ``submit(name, fn, *args)`` returns a Future; stages run FIFO.
     - ``barrier()`` waits for everything submitted so far and re-raises
-      the first stage exception (unless the stage was submitted with
-      ``suppress=True``, matching the orchestrator's existing
-      best-effort semantics for preview rendering).
-    - With ``serial=True`` (or BOA_SERIAL_STAGES=1) ``submit`` executes
-      inline — the exact pre-worker behavior.
+      the first stage exception.
+    - ``close()`` (also the context manager's exit) is a barrier, then
+      stops the thread.
     """
 
-    def __init__(self, serial: bool | None = None) -> None:
-        if serial is None:
-            serial = os.environ.get("BOA_SERIAL_STAGES", "") == "1"
-        self.serial = serial
+    def __init__(self) -> None:
         self._pool: ThreadPoolExecutor | None = None
         self._pending: list[tuple[str, Future]] = []
 
-    def _run(self, name: str, suppress: bool, fn: Callable[..., Any],
-             args: tuple, kwargs: dict) -> Any:
+    @staticmethod
+    def _run(name: str, fn: Callable[..., Any], args: tuple, kwargs: dict) -> Any:
         t0 = perf_counter()
         try:
             return fn(*args, **kwargs)
-        except Exception:
-            if not suppress:
-                raise
-            logger.warning("Deferred stage %s failed", name, exc_info=True)
-            return None
         finally:
-            logger.info("Stage %s: DONE in %0.5fs%s", name,
-                        perf_counter() - t0,
-                        "" if self.serial else " (overlapped)")
+            logger.info("Stage %s: DONE in %0.5fs (overlapped)", name, perf_counter() - t0)
 
-    def submit(self, name: str, fn: Callable[..., Any], *args: Any,
-               suppress: bool = False, **kwargs: Any) -> Future:
-        if self.serial:
-            # exact pre-worker behavior: run now, raise at the call site
-            fut: Future = Future()
-            fut.set_result(self._run(name, suppress, fn, args, kwargs))
-            return fut
+    def submit(self, name: str, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Future:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="boa-host-stage")
         # prune completed-successful stages: a long-lived shared worker
-        # (study streams) must not retain every stage's result (a
-        # finished bca postprocess future pins a ~78 MB volume)
+        # must not retain every stage's result
         self._pending = [(n, f) for n, f in self._pending
                          if not f.done() or f.exception() is not None]
-        fut = self._pool.submit(self._run, name, suppress, fn, args, kwargs)
+        fut = self._pool.submit(self._run, name, fn, args, kwargs)
         self._pending.append((name, fut))
         return fut
 
@@ -100,21 +79,8 @@ class HostWorker:
                 self._pool.shutdown(wait=True)
                 self._pool = None
 
-    def abort(self) -> None:
-        """Tear down without raising (for error paths: don't mask the
-        primary exception with a deferred-stage failure)."""
-        for _, fut in self._pending:
-            fut.cancel()
-        self._pending = []
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
-
     def __enter__(self) -> "HostWorker":
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        if exc_type is None:
-            self.close()
-        else:
-            self.abort()
+        self.close()

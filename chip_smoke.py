@@ -712,9 +712,7 @@ def phase_total(torch, rc, pc, profile_run: bool = False) -> dict:
     from boa_tpu_torch.inference.pipeline import predict_image
     from boa_tpu_torch.io.nifti import NiftiImage
     from boa_tpu_torch.ops import cropping
-    from boa_tpu_torch.ops import cropping
     from boa_tpu_torch.ops import preprocess as pp
-    from boa_tpu_torch.ops import resample as rs
     from boa_tpu_torch.tasks.class_maps import get_class_map
     from boa_tpu_torch.tasks.registry import get_task
 

@@ -10,6 +10,7 @@ intensities within 1e-3 HU (the reference sums in float32).
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -102,6 +103,17 @@ def _same_outputs(got_dir, ref_dir):
     assert sum(w["volume"] > 0 for w in want.values()) > 20
 
 
+class _SlowWorker(HostWorker):
+    """Delays every stage, so that a save nobody waits for is still in
+    flight when compute_all_models returns."""
+
+    def submit(self, name, fn, *args, **kwargs):
+        def late(*a, **kw):
+            time.sleep(0.3)
+            return fn(*a, **kw)
+        return super().submit(name, late, *args, **kwargs)
+
+
 @pytest.mark.parametrize("worker", [False, True])
 def test_outputs_match_reference(study, tmp_path, worker):
     root, ref_stats = study
@@ -110,13 +122,15 @@ def test_outputs_match_reference(study, tmp_path, worker):
     kw = dict(totalsegmentator_params={"fast": True}, fake_predict=fake, device="cpu",
               spans=spans, images_out=images)
     if worker:
-        with HostWorker() as w:
+        with _SlowWorker() as w:
             got_stats = tinf.compute_all_models(root / "ct.nii.gz", tmp_path, MODELS,
                                                 worker=w, **kw)
+            # every file is written when compute_all_models returns
+            _same_outputs(tmp_path, root / "ref")
     else:
         got_stats = tinf.compute_all_models(root / "ct.nii.gz", tmp_path, MODELS, **kw)
+        _same_outputs(tmp_path, root / "ref")
     assert got_stats == ref_stats
-    _same_outputs(tmp_path, root / "ref")
     assert list(images) == MODELS
     assert {"load", "body_crop", "predict", "statistics", "measure_inputs",
             "total.histogram", "autochthon", "total.cnr_adjusted", "pfav", "save",

@@ -106,13 +106,17 @@ def test_get_basic_statistics_matches_reference(case):
     ref = jst.get_basic_statistics(seg, ct_j, spacing, TOTAL, **kw)
     got = tst.get_basic_statistics(seg, ct_t, spacing, TOTAL, device="cpu", **kw)
     assert list(got) == list(ref)
+    # 1e-3 HU, on the normalized scale 1e-3 HU over the CT's range
+    atol = 1e-3
+    if kw.get("normalized_intensities"):
+        atol /= float(ct.max()) - float(ct.min())
     n_nonzero = 0
     for name, want in ref.items():
         if case == "irregular_spacing":
             np.testing.assert_allclose(got[name]["volume"], want["volume"], rtol=2.4e-7)
         else:
             assert got[name]["volume"] == want["volume"], name
-        np.testing.assert_allclose(got[name]["intensity"], want["intensity"], atol=1e-3)
+        np.testing.assert_allclose(got[name]["intensity"], want["intensity"], atol=atol)
         n_nonzero += want["volume"] > 0
     assert n_nonzero > (2 if case == "roi_subset" else 50)
     if case == "roi_subset":
