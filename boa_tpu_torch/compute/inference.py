@@ -1,15 +1,17 @@
-"""Model runs over one CT study: the TotalSegmentator models, from
-the CT file to the segmentation, statistics and measurement files.
+"""Model runs over one CT study, from the CT file to the segmentation,
+statistics, measurement and BCA files.
 
 Counterpart of `boa_tpu/compute/inference.py` (body_organ_analysis
-`compute/inference.py` `compute_all_models`) for the TotalSegmentator
-tasks: the CT is decoded once and cropped to the body in plane, and the
-same image feeds every model; crop-cascade tasks first run a low-res
-`total`; `total`'s labels stay on the device for the measurement engine;
-each task's labels go to `{output name}.nii.gz` (padded back to the full
-grid), `total`'s statistics to `total-statistics.json`, and the
-measurements to `total-measurements.json` and `ct_pfav.nii.gz`. The BCA
-models (`BASE_MODELS`) and the preview are not ported yet and raise.
+`compute/inference.py` `compute_all_models`): the CT is decoded once and
+cropped to the body in plane, and the same image feeds every model.
+TotalSegmentator tasks: crop-cascade tasks first run a low-res `total`;
+`total`'s labels stay on the device for the measurement engine; each task's
+labels go to `{output name}.nii.gz` (padded back to the full grid),
+`total`'s statistics to `total-statistics.json`, and the measurements to
+`total-measurements.json` and `ct_pfav.nii.gz`. The BCA models
+(`BASE_MODELS`): `bca` runs `bca/pipeline.py:run_pipeline` with `total`'s
+labels of this run, `body_parts` and `body_regions` alone run
+`bca_inference`. The preview and the BCA PDF wait for ROADMAP M9 and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from boa_tpu_torch.bca.pipeline import bca_inference, run_pipeline
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.inference.pipeline import predict_image
 from boa_tpu_torch.io import nifti
@@ -63,6 +66,9 @@ def compute_all_models(
     segmentation_folder: pathlib.Path,
     models_to_compute: Iterable[str],
     totalsegmentator_params: dict[str, Any] | None = None,
+    fast_bca: bool = False,
+    bca_params: dict[str, Any] | None = None,
+    force_split_threshold: int = 400,
     recompute: bool = True,
     cnr_adjustment: bool = True,
     store=None,
@@ -75,20 +81,24 @@ def compute_all_models(
     """Returns the study's voxel and slice counts and writes its files.
 
     `totalsegmentator_params` may hold `fast` (for `total`) and
-    `license_number` (unused). `recompute=False` skips a task whose file
+    `license_number` (unused). `fast_bca` runs the BCA models on fold 0
+    only; `bca_params` go to `run_pipeline` and must hold `save_pdf=False`
+    while the PDF is not ported. `force_split_threshold` only logs: the
+    study is never split in z. `recompute=False` skips a task whose file
     exists, and the measurements when their file exists. `worker`
     (utils/stages.HostWorker) runs the file saves behind the next device
     stage; every file is written before this returns. `images_out` collects
     the label images by task. `device` defaults to the card. `spans`, when
     given, receives the seconds of `load`, `body_crop`, every stage of
     `predict_image` (`predict_{tid}`, `statistics`, ...), the measurement
-    engine's, `save` (the files written on this thread, or handed to the
-    worker) and `save_wait` (for the worker's saves at the end)."""
+    engine's, `run_pipeline`'s, `save` (the files written on this thread,
+    or handed to the worker) and `save_wait` (for the worker's saves at the
+    end)."""
     models_to_compute = list(models_to_compute)
-    base = sorted(BASE_MODELS & set(models_to_compute))
-    if base:
-        raise NotImplementedError(
-            f"{base}: the BCA models are not ported yet (ROADMAP M8)")
+    bca_params = dict(bca_params or {})
+    if "bca" in models_to_compute and bca_params.get("save_pdf", True):
+        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9): "
+                                  "pass bca_params={'save_pdf': False}")
     totalsegmentator_params = dict(totalsegmentator_params or {})
     if totalsegmentator_params.pop("preview", False):
         raise NotImplementedError("the preview is not ported yet (ROADMAP M9)")
@@ -122,7 +132,8 @@ def compute_all_models(
     crop_total: nifti.NiftiImage | None = None  # the low-res total of the cascade
     save_futures: list = []
     seg_cache: dict[str, nifti.NiftiImage] = images_out if images_out is not None else {}
-    for chosen_task in models_to_compute:
+    measurement_models = [m for m in models_to_compute if m not in BASE_MODELS]
+    for chosen_task in measurement_models:
         seg_file = segmentation_folder / f"{_output_name(chosen_task)}.nii.gz"
         if not recompute and seg_file.is_file():
             logger.info("Model %s was already computed, skipping", chosen_task)
@@ -168,10 +179,10 @@ def compute_all_models(
         sp.mark("save")
 
     measurement_file = segmentation_folder / "total-measurements.json"
-    if models_to_compute and (recompute or not measurement_file.is_file()):
+    if measurement_models and (recompute or not measurement_file.is_file()):
         json_data = compute_measurements(
             ct_path=pathlib.Path(ct_path), segmentation_folder=segmentation_folder,
-            models=models_to_compute, cnr_adjustment=cnr_adjustment,
+            models=measurement_models, cnr_adjustment=cnr_adjustment,
             ct_image=ct_img, seg_images=seg_cache, worker=worker,
             device=device, spans=spans, save_futures=save_futures)
         sp.restart()
@@ -180,6 +191,26 @@ def compute_all_models(
         sp.mark("save")
     else:
         logger.info("The total measurements were already computed, skipping")
+
+    for boa_task in sorted(BASE_MODELS & set(models_to_compute)):
+        resampling_bca = convert_resampling_slices(
+            slices=shape[-1], current_sampling=spacing[-1], target_resampling=5.0)
+        if resampling_bca > force_split_threshold:
+            logger.info("Study resamples to %s slices (> %s); the reference would "
+                        "split it in z, this pipeline does not.",
+                        resampling_bca, force_split_threshold)
+        if boa_task == "bca":
+            run_pipeline(input_image=ct_img, output_dir=segmentation_folder, store=store,
+                         fast_bca=fast_bca, recompute=recompute, fake_predict=fake_predict,
+                         total_seg=np.asarray(seg_cache["total"].data)
+                         if "total" in seg_cache else None,
+                         worker=worker, stats_out=stats, images_out=images_out,
+                         device=device, spans=spans, **bca_params)
+        else:
+            bca_inference(ct_img, segmentation_folder, boa_task, store, fast_bca,
+                          recompute=recompute, fake_predict=fake_predict, device=device,
+                          spans=spans)
+        sp.restart()
     for fut in save_futures:
         fut.result()
     sp.mark("save_wait")

@@ -137,8 +137,9 @@ def predict_image(
     the min-max-normalized CT with `stats_normalized_intensities`, and 0 for
     a class on the 3-voxel margin with `stats_exclude_border`. `spans`,
     when given, receives the wall seconds of each stage (`predict_{tid}`
-    per sub-model), the tile count of all sub-models ("tiles") and the
-    number of them that accumulated in float16 ("float16_accumulators")."""
+    per sub-model), the tile count of all sub-models ("tiles"), their tile
+    forwards over every fold ("tile_forwards") and the number of them that
+    accumulated in float16 ("float16_accumulators")."""
     device = resolve_device(device)
     task = resolve_task(task_name, fast=fast)
     label_map = class_map_for_task(task.name)
@@ -386,6 +387,7 @@ def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, *,
         else:
             seg = pred.predict(data_rsp, spacing, return_device=True)
         sp.add("tiles", pred.n_tiles)
+        sp.add("tile_forwards", pred.n_tiles * len(pred.models))
         sp.add("float16_accumulators", int(pred.accum_used == torch.float16))
         return seg
 
@@ -395,6 +397,7 @@ def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, *,
         pred = predictor()
         pred.predict(data_rsp, spacing, return_device=True)
         sp.add("tiles", pred.n_tiles)
+        sp.add("tile_forwards", pred.n_tiles * len(pred.models))
     full_shape = tuple(data_rsp.shape) if fake_geom is None else fake_geom[0]
 
     def window(seg: np.ndarray) -> np.ndarray:

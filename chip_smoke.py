@@ -74,15 +74,41 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               timed run with spans (load, body_crop, predict_291 ...
               predict_295, statistics, save, the engine's), peak memory and the
               launches of 6 (c)
+8. bca      - the BCA chain from a CT file to its files: (a)
+              `compute_all_models(ct_path, out, ["total", "bca"])` with the
+              small five-model store of 6 (a) plus body_parts (543) and
+              body_regions (542) at the same widths with five folds each
+              (1.5 x 1.5 x 5 mm, the plans' grid, the head bias with
+              background's lead) on the 96x96x64 `.nii.gz`, on the card and on
+              the CPU: every promised file exists and loads, the labels of each
+              `.nii.gz` agree > 0.99, bca-measurements.json has the same keys
+              and Nones on both sides, launches tiles x folds x (4, 1, 1) with
+              the split plan's finishing passes; (b) the BCA device passes at
+              512x512x300 on the port's anatomy phantom (an arm, 255
+              fragments): `subclassify_tissues` with and without the median,
+              the Builder's per-slice pass, `region_z_counts`, `prepare` (the
+              density stacks) and `create_json` on the card against the CPU:
+              tissues and counts equal, HU sums and the JSON within 1e-9
+              relative; seconds, spans and the peak, and each of the three
+              bincount passes timed against a loop of masked reductions; (c)
+              the 512x512x300 study from its file through
+              `compute_all_models(["total", "bca"])` with `total` fast and both
+              BCA models at the total_fast widths (128^3 patch, five folds):
+              one warm-up and one timed run with seconds, spans (predict_543,
+              predict_542, both postprocesses, tissues, builder, prepare, save,
+              save_wait), peak memory, launches tiles x folds x (4, 1, 1) and
+              each model loaded once
 
-With --profile, the fused, study and total phases each add one more run
-under torch.profiler (device busy share, kernels by device time), and the
-measure phase one more run of (b) on the card. With --phases=a,b (of
-kernels, forward, fused, study, total, measure) only those phases run after
-the device phase, and the kernel summary line is left out. Each phase
-prints one JSON line (the total and measure phases one per part). Then come the
-kernel summary line {"kernels": [...]} (K1-K3's `launches` are the fast
-study's, `launches_total` the full total study's) and, last,
+The device phase also says whether pandas, matplotlib and cv2 import on the
+card machine. With --profile, the fused, study and total phases each add one
+more run under torch.profiler (device busy share, kernels by device time),
+and the measure phase one more run of (b) on the card. With --phases=a,b (of
+kernels, forward, fused, study, total, measure, bca) only those phases run
+after the device phase, and the kernel summary line is left out. Each phase
+prints one JSON line (the total, measure and bca phases one per part). Then
+come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are the
+fast study's, `launches_total` the full total study's, `launches_bca` the
+BCA study's) and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -100,7 +126,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure")
+ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -176,8 +202,12 @@ def phase_device(torch, _build) -> dict:
                              for line in lines if "registers" in line})
         spills[stem] = max((int(line.split("bytes spill stores")[0].split(",")[-1])
                             for line in lines if "bytes spill stores" in line), default=0)
+    # the host packages the PDF, the workbook and the preview would need
+    host_modules = {m: subprocess.run([sys.executable, "-c", f"import {m}"],
+                                      capture_output=True).returncode == 0
+                    for m in ("pandas", "matplotlib", "cv2")}
     emit({"phase": "device", "nvidia_smi": smi,
-          "name": torch.cuda.get_device_name(0),
+          "name": torch.cuda.get_device_name(0), "host_modules": host_modules,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0, "build_cached": _build.build_info["cached"],
           "registers_per_thread": regs, "max_spill_store_bytes": spills})
@@ -1136,6 +1166,359 @@ def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
     return res
 
 
+# --- phase 8: the BCA chain --------------------------------------------------
+
+# (task id, name, model folder name, trainer) of the two BCA models
+BCA_MODELS = ((543, "body_parts", "BCA_body_parts", "nnUNetTrainer_1500epochs_NoMirroring"),
+              (542, "body_regions", "BCA_body_regions", "nnUNetTrainerNoMirroring"))
+BCA_FOLDS = 5   # the registry runs folds 0-4
+BCA_FILES = ("body_parts.nii.gz", "body_regions.nii.gz", "tissues.nii.gz",
+             "bca-measurements.json")
+
+
+def _bca_store(tmp, features, patch) -> None:
+    """body_parts (543) and body_regions (542) in `tmp`, five folds each, at
+    1.5 x 1.5 x 5 mm (x, y, z; the plans list it z first), so that the
+    bench CT's model grid (its own 1.5 mm in plane, 5 mm in z) is the plans'
+    grid and the predictor does not resample; every fold's head biased as
+    `_synthetic` biases fold 0, with background's lead. The repo holds no
+    published plans for tasks 542/543: they take the geometry given here.
+    Eight threads write the folds (zlib releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from boa_tpu_torch.bca.definitions import BodyPart, BodyRegion
+    from boa_tpu_torch.plans.plans import synthetic_plans
+    from boa_tpu_torch.weights import convert as cv
+    from boa_tpu_torch.weights.store import create_synthetic_model, init_params_numpy
+
+    jobs = []
+    for (tid, _, name, trainer), enum_ in zip(BCA_MODELS, (BodyPart, BodyRegion)):
+        names = [e.name.lower() for e in sorted(enum_, key=int) if e]
+        kw = dict(num_classes=len(names) + 1, patch_size=patch, spacing=(5.0, 1.5, 1.5),
+                  features=features, label_names=names)
+        mdir = create_synthetic_model(tmp, tid, name, trainer=trainer, n_folds=0, **kw)
+        cfg = synthetic_plans(**kw).arch_config()
+        jobs += [(mdir, cfg, tid, f) for f in range(BCA_FOLDS)]
+
+    def write(job) -> None:
+        mdir, cfg, tid, fold = job
+        params = init_params_numpy(cfg, tid * 10 + fold)
+        head = params["seg_heads"][-1]
+        head["b"] = head["b"] + np.asarray(np.random.default_rng(7 + tid).normal(
+            0, 3.0, head["b"].shape), head["b"].dtype)
+        head["b"][0] = head["b"][1:].max() + BACKGROUND_LEAD
+        (mdir / f"fold_{fold}").mkdir()
+        cv.save_params_npz(params, mdir / f"fold_{fold}" / "checkpoint_final.npz")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def _bca_tiles(img, patch, total_spacing) -> dict:
+    """Tiles per model of a `compute_all_models(["total", "bca"])` run on
+    `img`: `total` (one sub-model at `total_spacing`, step 0.5, or the five
+    at 1.5 mm, step 0.8, when `total_spacing` is None) and the two BCA models
+    (the body crop's in-plane spacing, 5 mm in z, step 0.5)."""
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.ops import cropping
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.ops import resample as rs
+
+    cut = nifti.canonical_geometry(cropping.body_crop_xy(img)[0])
+
+    def tiles(spacing, step) -> int:
+        grid = rs.change_spacing_shape(cut[2], cut[3], spacing)[0]
+        return len(pp.tile_starts(tuple(max(int(n), p) for n, p in zip(grid, patch)),
+                                  patch, step))
+
+    total = (len(PART_IDS) * tiles((1.5, 1.5, 1.5), 0.8) if total_spacing is None
+             else tiles(total_spacing, 0.5))
+    bca = tiles((cut[3][0], cut[3][1], 5.0), 0.5)
+    return {"total": total, "bca_per_fold": bca,
+            "tiles": total + 2 * bca,
+            "tile_forwards": total + 2 * BCA_FOLDS * bca}
+
+
+def _json_max_rel(a, b, path="") -> float:
+    """Walk two JSON values: the same keys in the same order, and None,
+    bools and strings in the same places, or raise; returns the largest
+    relative difference of their numbers."""
+    if isinstance(b, (dict, list)):
+        keys = list(b) if isinstance(b, dict) else range(len(b))
+        if type(a) is not type(b) or list(a if isinstance(b, dict) else range(len(a))) \
+                != list(keys):
+            raise AssertionError(f"structure differs at {path}")
+        return max([_json_max_rel(a[k], b[k], f"{path}/{k}") for k in keys] + [0.0])
+    if b is None or isinstance(b, (bool, str)) or a is None or isinstance(a, (bool, str)):
+        if a != b:
+            raise AssertionError(f"{path}: {a!r} != {b!r}")
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def _bca_phantom(shape, spacing):
+    """(CT, parts, regions, vertebra windows) of the port's anatomy phantom:
+    the x-most eighth of the body's parts an arm (the no-limb sums differ),
+    and 255 fragments in 4^3 blocks over 1 % of the regions."""
+    from boa_tpu_torch.bca.definitions import BodyPart
+    from boa_tpu_torch.bca.report import AggregatableBodyPart, create_vertebrae_info
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.testing import anatomy
+
+    ct = anatomy.synth_ct(shape, spacing)
+    parts = anatomy.fake_parts_seg(shape, spacing)
+    arm = parts[: shape[0] // 8]
+    arm[arm > 0] = int(BodyPart.ARM_RIGHT)
+    regions = anatomy.fake_regions_seg(shape, spacing)
+    rng = np.random.default_rng(8)
+    coarse = rng.random(tuple(-(-n // 4) for n in shape)) < 0.01
+    frag = coarse.repeat(4, 0).repeat(4, 1).repeat(4, 2)[:shape[0], :shape[1], :shape[2]]
+    regions[frag & (regions > 0)] = 255
+    vertebrae = create_vertebrae_info(
+        anatomy.fake_total_seg(shape, spacing),
+        AggregatableBodyPart.ABDOMEN | AggregatableBodyPart.THORAX, get_class_map("total"))
+    return ct, parts, regions, vertebrae
+
+
+def _one_hot_alternatives(torch, ct, tissues, regions, torso) -> dict:
+    """The report's three per-slice and per-axis passes (`torch.bincount`
+    over a combined key) against a loop of one masked reduction per label id
+    on the same tensors: CUDA-event ms of both, and whether they agree. The
+    loops are used only here, to keep choosing between the two."""
+    from boa_tpu_torch.bca import report
+
+    n, nz = report._N_TISSUE, tissues.shape[2]
+
+    def slicewise_loop():
+        ctd = ct.to(torch.float64)
+        counts = torch.empty((2, n, nz), dtype=torch.int64, device=tissues.device)
+        husums = torch.empty((2, n, nz), dtype=torch.float64, device=tissues.device)
+        for i in range(n):
+            m = tissues == i
+            mt = m & torso
+            counts[0, i], counts[1, i] = m.sum(dim=(0, 1)), mt.sum(dim=(0, 1))
+            husums[0, i] = torch.where(m, ctd, 0.0).sum(dim=(0, 1))
+            husums[1, i] = torch.where(mt, ctd, 0.0).sum(dim=(0, 1))
+        c, h = counts.transpose(1, 2).cpu().numpy(), husums.transpose(1, 2).cpu().numpy()
+        return c[0], h[0], c[1], h[1]
+
+    def region_loop(width=16):
+        return torch.stack([(regions == i).sum(dim=(0, 1)) for i in range(width)],
+                           dim=1).cpu().numpy()
+
+    def density_loop(axis=1):
+        counts = torch.stack([(tissues == i).sum(dim=axis) for i in range(1, n)])
+        return (counts.to(torch.float32) / tissues.shape[axis]).cpu().numpy()
+
+    port = {"slicewise": lambda: report._slicewise_pass(ct, tissues, torso),
+            "region_z": lambda: report._region_z_pass(regions, 16),
+            "density": lambda: report._tissue_density_pass(tissues, 1)}
+    loops = {"slicewise": slicewise_loop, "region_z": region_loop, "density": density_loop}
+    out = {"agree": {k: all(np.array_equal(a, b) for a, b in zip(port[k](), loops[k]()))
+                     if k == "slicewise" else np.array_equal(port[k](), loops[k]())
+                     for k in port}}
+    for k in port:
+        out[f"{k}_bincount_ms"] = time_ms(torch, port[k], 5)
+        out[f"{k}_loop_ms"] = time_ms(torch, loops[k], 5)
+    return out
+
+
+def phase_bca(torch, rc, pc) -> dict:
+    """The BCA chain. (a) `compute_all_models(ct_path, out, ["total", "bca"])`
+    on small stores (the five sub-models of 6 (a), body_parts and
+    body_regions with five folds, widths 32/64/128, 32^3 patch) from a
+    96x96x64 `.nii.gz`, on the card and on the CPU: every promised file
+    exists and loads, labels agree > 0.99, bca-measurements.json has the
+    same keys and Nones, launches tiles x folds x (4, 1, 1) with the split
+    plan's finishing passes; (b) the BCA device passes at 512x512x300 on the
+    anatomy phantom: `subclassify_tissues` with and without the median, the
+    Builder, `region_z_counts`, `prepare` and `create_json` on the card
+    against the CPU (tissues and counts equal, HU sums and the JSON within
+    1e-9 relative), their seconds, spans and peak, and the bincount passes
+    against loops of masked reductions; (c) the 512x512x300 study from its
+    file through `compute_all_models(["total", "bca"])` with `total` fast
+    and both BCA models at the total_fast widths with five folds: one
+    warm-up and one timed run (seconds, spans, peak, launches, each model
+    loaded once)."""
+    import json
+    from pathlib import Path
+
+    from boa_tpu_torch.bca.report import AggregatableBodyPart, Builder
+    from boa_tpu_torch.bca.tissues import subclassify_tissues
+    from boa_tpu_torch.compute.inference import compute_all_models
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+
+    label_names = list(get_class_map("total").values())
+    params = {"save_pdf": False}
+    res = {}
+
+    def launches() -> dict:
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset() -> None:
+        rc.reset_launches()
+        pc.reset_launches()
+
+    def outputs(folder: Path, shape) -> dict:
+        """Every label file and the BCA report load."""
+        files = sorted(p.name for p in folder.iterdir())
+        assert set(BCA_FILES) | {"total.nii.gz", "total-measurements.json"} <= set(files), files
+        labels = {n: nifti.load(folder / n).data for n in files if n.endswith(".nii.gz")}
+        for n, seg in labels.items():
+            assert seg.shape == shape, (n, seg.shape)
+        return {"files": files, "labels": labels,
+                "report": json.loads((folder / "bca-measurements.json").read_text())}
+
+    # --- (a) small file-to-files run, card against the CPU
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        patch = (32, 32, 32)
+        store = _parts_store(tmp, (32, 64, 128), patch, (1.5, 1.5, 1.5))
+        _bca_store(tmp, (32, 64, 128), patch)
+        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        nifti.save(img, tmp / "ct.nii.gz")
+        spans: dict = {}
+        reset()
+        compute_all_models(tmp / "ct.nii.gz", tmp / "gpu", ["total", "bca"], store=store,
+                           bca_params=params, device="cuda", spans=spans)
+        got = launches()
+        compute_all_models(tmp / "ct.nii.gz", tmp / "cpu", ["total", "bca"], store=store,
+                           bca_params=params, device="cpu")
+        gpu, cpu = outputs(tmp / "gpu", img.shape), outputs(tmp / "cpu", img.shape)
+        assert gpu["files"] == cpu["files"], (gpu["files"], cpu["files"])
+        expect = _bca_tiles(img, patch, None)
+        tf = spans["tile_forwards"]
+        want = _want_launches(tf, _rows_finish(torch, pc, tf, patch, 32))
+        res["small"] = {
+            "agree": {n: float((gpu["labels"][n] == cpu["labels"][n]).mean())
+                      for n in gpu["labels"]},
+            "labels_present": {n: int(len(np.unique(v))) for n, v in gpu["labels"].items()},
+            "tiles": spans["tiles"], "tile_forwards": tf, "expected": expect,
+            "launches": got, "files": gpu["files"],
+            "body_parts": gpu["report"]["body_parts"],
+            "report_max_rel": _json_max_rel(gpu["report"], cpu["report"]),
+            "part_s": time.perf_counter() - t_part}
+        emit({"phase": "bca", "part": "small", **res["small"]})
+        assert (spans["tiles"], tf) == (expect["tiles"], expect["tile_forwards"]), spans
+        assert got == want, (got, want)
+        assert min(res["small"]["agree"].values()) > 0.99, res["small"]["agree"]
+
+    # --- (b) the BCA device passes at 512x512x300, card against the CPU
+    t_part = time.perf_counter()
+    shape, spacing = STUDY_SHAPE, (1.5, 1.5, 3.0)
+    ct, parts, regions, vertebrae = _bca_phantom(shape, spacing)
+    dev = torch.device("cuda")
+    ct_dev = torch.from_numpy(ct).to(dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+
+    def passes(device) -> dict:
+        on_card = device == "cuda"
+        ct_in = ct_dev if on_card else ct
+        sec, spans, out = {}, {}, {}
+        for median in (False, True):
+            t0 = time.perf_counter()
+            out[median] = subclassify_tissues(ct_in, regions, median_filtering=median,
+                                              device=device, spans=spans)
+            sec["tissues_median" if median else "tissues"] = time.perf_counter() - t0
+        host, tis_dev, reg_dev = out[False]
+        t0 = time.perf_counter()
+        b = Builder(ct_in, parts, regions, host, spacing, tissues_dev=tis_dev,
+                    regions_dev=reg_dev, device=device, spans=spans)
+        sec["builder"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zc = b.region_z_counts()
+        sec["region_z_counts"] = time.perf_counter() - t0
+        b.examined_body_part = AggregatableBodyPart.from_body_regions(
+            regions, spacing[2], z_counts=zc)
+        t0 = time.perf_counter()
+        prep = b.prepare(vertebrae)
+        sec["prepare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        js = b.create_json(**prep)
+        sec["json"] = time.perf_counter() - t0
+        return {"tissues": host, "tissues_median": out[True][0], "builder": b, "zc": zc,
+                "prep": prep, "json": js, "sec": sec, "spans": spans}
+
+    passes("cuda")   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = passes("cuda")
+    peak = torch.cuda.max_memory_allocated() - resident
+    alternatives = _one_hot_alternatives(
+        torch, ct_dev, gpu["builder"]._tissues_dev, gpu["builder"]._regions_dev,
+        torch.from_numpy(parts == 1).to(dev))
+    cpu = passes("cpu")
+    g, c = gpu["builder"], cpu["builder"]
+    hu_rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+                 for a, b in ((g._husums, c._husums), (g._husums_nl, c._husums_nl)))
+    res["passes"] = {
+        "voxels": int(np.prod(shape)), "gpu_s": gpu["sec"], "gpu_spans": gpu["spans"],
+        "cpu_s": cpu["sec"], "cpu_spans": cpu["spans"],
+        "peak_mem_gib_above_ct": peak / 2 ** 30, "one_hot_alternatives": alternatives,
+        "hu_sum_max_rel": hu_rel, "json_max_rel": _json_max_rel(gpu["json"], cpu["json"]),
+        "body_parts": gpu["json"]["body_parts"], "groups": list(gpu["json"]["aggregated"]),
+        "tissue_voxels": np.bincount(gpu["tissues"].ravel(), minlength=8).tolist(),
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "bca", "part": "passes", **res["passes"]})
+    for key in ("tissues", "tissues_median"):
+        assert np.array_equal(gpu[key], cpu[key]), key
+    for a, b in ((g._counts, c._counts), (g._counts_nl, c._counts_nl), (gpu["zc"], cpu["zc"])):
+        assert np.array_equal(a, b)
+    for ax in (1, 0):
+        assert np.array_equal(gpu["prep"]["tissue_density"][ax], cpu["prep"]["tissue_density"][ax])
+    assert hu_rel <= 1e-9 and res["passes"]["json_max_rel"] <= 1e-9, res["passes"]
+    assert all(alternatives["agree"].values()), alternatives["agree"]
+    assert gpu["json"]["body_parts"]["abdomen"] and len(gpu["json"]["aggregated"]) > 5
+    del ct_dev, gpu, cpu, g, c
+
+    # --- (c) the 512x512x300 study from its file: total fast, both BCA models
+    #     at the total_fast widths with five folds
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        patch = (128, 128, 128)
+        _store(tmp, TOTAL_FAST_FEATURES, patch, ["background"] + label_names)
+        _bca_store(tmp, TOTAL_FAST_FEATURES, patch)
+        store = _CountingStore(tmp)
+        img = _bench_ct(shape, spacing)
+        nifti.save(img, tmp / "ct.nii.gz")
+        expect = _bca_tiles(img, patch, (3.0, 3.0, 3.0))
+        store_s = time.perf_counter() - t_part
+        runs = []
+        for i in range(2):
+            spans = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            compute_all_models(tmp / "ct.nii.gz", tmp / f"out{i}", ["total", "bca"],
+                               store=store, totalsegmentator_params={"fast": True},
+                               bca_params=params, spans=spans)
+            dt = time.perf_counter() - t0
+            runs.append({"s": dt, "spans": spans, "launches": launches(),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        out = outputs(tmp / "out1", shape)
+        res["study"] = {
+            "sec": runs[1]["s"], "warmup_s": runs[0]["s"], "store_write_s": store_s,
+            "peak_mem_gib": runs[1]["peak_mem_gib"], "spans": runs[1]["spans"],
+            "launches": runs[1]["launches"], "expected": expect,
+            "checkpoint_loads": store.loads, "files": out["files"],
+            "labels_present": {n: int(len(np.unique(v))) for n, v in out["labels"].items()},
+            "body_parts": out["report"]["body_parts"],
+            "groups": list(out["report"]["aggregated"]),
+            "part_s": time.perf_counter() - t_part}
+    emit({"phase": "bca", "part": "study", **res["study"]})
+    for r in runs:
+        assert (r["spans"]["tiles"], r["spans"]["tile_forwards"]) == \
+            (expect["tiles"], expect["tile_forwards"]), r["spans"]
+        assert r["launches"] == _want_launches(expect["tile_forwards"]), r["launches"]
+    assert store.loads == 3, store.loads   # total_fast, body_parts, body_regions
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -1153,7 +1536,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study, total) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total, bca) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -1169,8 +1552,10 @@ def _summary(cases, fused_cases, fused, study, total) -> list[dict]:
             mine = [c for c in mine if c["layout"] == "concat"]
         row = _row(name, mine, [c for c in cases if c["name"] == name],
                    study["launches"][name])
-        # the same kernels' launches on the full (five-model) total study
+        # the same kernels' launches on the full (five-model) total study and
+        # on the BCA study (total fast and two 5-fold models)
         row["launches_total"] = total["study"]["launches"][name]
+        row["launches_bca"] = bca["study"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -1211,8 +1596,10 @@ def main() -> int:
         total = phase_total(torch, rc, pc, profile_run)
     if "measure" in phases:
         phase_measure(torch, rc, pc, profile_run)
+    if "bca" in phases:
+        bca = phase_bca(torch, rc, pc)
     if phases == ALL_PHASES:
-        emit({"kernels": _summary(cases, fused_cases, fused, study, total)})
+        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """The port's study orchestration (boa_tpu_torch/compute/inference.py
 `compute_all_models`) against the reference's (boa_tpu/compute/inference.py),
 through the fake-predict hook on a small CT file with a body crop, on the
-CPU: `total` (fast) and the crop task `liver_vessels`.
+CPU: `total` (fast) and the crop task `liver_vessels`; the BCA models
+through the anatomy phantom's hook and on small real synthetic models.
 
 Bars: the same file set; the label and ct_pfav files byte-identical;
 `total-measurements.json` equal (histogram-derived numbers exactly, the
@@ -159,17 +160,117 @@ def test_recompute_false_skips_and_measures_from_files(study, tmp_path):
     _same_outputs(tmp_path, root / "ref")
 
 
-@pytest.mark.parametrize("models,params,match", [
-    (["total", "bca"], {}, "M8"), (["body_parts"], {}, "M8"),
-    (["body_regions"], {}, "M8"), (["total"], {"preview": True}, "M9"),
+@pytest.mark.parametrize("models,params,bca_params", [
+    (["total"], {"preview": True}, None),
+    (["total", "bca"], {}, None), (["bca"], {}, {"save_pdf": True}),
 ])
-def test_unported_parts_raise(study, tmp_path, models, params, match):
+def test_unported_parts_raise(study, tmp_path, models, params, bca_params):
+    """The preview and the BCA PDF (the default of save_pdf) raise, naming
+    M9, before anything is written."""
     root, _ = study
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="M9"):
         tinf.compute_all_models(root / "ct.nii.gz", tmp_path, models,
-                                totalsegmentator_params=params, fake_predict=fake,
-                                device="cpu")
+                                totalsegmentator_params=params, bca_params=bca_params,
+                                fake_predict=fake, device="cpu")
     assert not any(tmp_path.iterdir())
+
+
+@pytest.fixture(scope="module")
+def bca_study(tmp_path_factory):
+    """The anatomy phantom as a CT file with air around the body (the body
+    crop applies), 600 mm long at 5 mm."""
+    from boa_tpu.testing import anatomy
+
+    root = tmp_path_factory.mktemp("bca_study")
+    shape, spacing = (96, 88, 120), (5.0, 5.0, 5.0)
+    aff = np.diag([-spacing[0], -spacing[1], spacing[2], 1.0])
+    aff[:3, 3] = (200, 180, -300)
+    tn.save(tn.NiftiImage(data=anatomy.synth_ct(shape, spacing), affine=aff),
+            root / "ct.nii.gz")
+    return root
+
+
+BCA_FILES = {"bca": ["bca-measurements.json", "body_parts.nii.gz", "body_regions.nii.gz",
+                     "tissues.nii.gz", "vertebrae.json"],
+             "body_parts": ["body_parts.nii.gz"], "body_regions": ["body_regions.nii.gz"]}
+
+
+@pytest.mark.parametrize("models,worker", [
+    (["total", "bca"], False), (["total", "bca"], True), (["body_parts"], False),
+    (["body_regions"], False)])
+def test_bca_models_match_reference(bca_study, tmp_path, models, worker):
+    """The BCA half of compute_all_models through the anatomy fake hook in
+    both packages: the same files, label files byte-identical, the BCA JSONs
+    within tests/test_torch_bca.py's bars, the study stats (with
+    `bca_regions`) equal."""
+    from boa_tpu.testing import anatomy as janat
+    from boa_tpu_torch.testing import anatomy as tanat
+    from tests.test_torch_bca import _close
+
+    kw = dict(totalsegmentator_params={"fast": True}, bca_params={"save_pdf": False})
+    want = jinf.compute_all_models(bca_study / "ct.nii.gz", tmp_path / "ref", models,
+                                   store="/nonexistent",
+                                   fake_predict=janat.fake_predict_factory(), **kw)
+    spans: dict = {}
+    with HostWorker() as w:
+        got = tinf.compute_all_models(bca_study / "ct.nii.gz", tmp_path / "got", models,
+                                      fake_predict=tanat.fake_predict_factory(),
+                                      device="cpu", spans=spans,
+                                      worker=w if worker else None, **kw)
+    assert got == want
+    files = _files(tmp_path / "ref")
+    assert _files(tmp_path / "got") == files
+    assert set(BCA_FILES[models[-1]]) <= set(files)
+    for name in files:
+        if name.endswith(".nii.gz"):
+            assert (tmp_path / "got" / name).read_bytes() == \
+                (tmp_path / "ref" / name).read_bytes(), name
+        elif name in ("bca-measurements.json", "vertebrae.json"):
+            _close(json.loads((tmp_path / "got" / name).read_text()),
+                   json.loads((tmp_path / "ref" / name).read_text()))
+    if "bca" in models:
+        assert got["bca_regions"] == 3
+        bca = json.loads((tmp_path / "got" / "bca-measurements.json").read_text())
+        assert bca["body_parts"]["abdomen"] and "l3" in bca["aggregated"]
+        assert {"predict", "predict_543", "predict_542", "tissues", "builder",
+                "save_wait"} <= set(spans)
+
+
+def test_bca_real_models_match_reference(tmp_path):
+    """body_parts and body_regions on real synthetic models (widths (4, 8),
+    16x16x8 patch, 5 mm thickness-only resample; tests/test_bca.py's
+    real-model case) with the five folds the registry runs, through
+    compute_all_models(["bca"]) in fp32 in both packages: labels agree
+    > 0.995, the same files."""
+    from boa_tpu.bca.definitions import BodyPart, BodyRegion
+    from boa_tpu.weights.store import ModelStore as JStore
+    from boa_tpu_torch.weights.store import ModelStore, create_synthetic_model
+
+    root = tmp_path / "models"
+    for tid, name, trainer, enum_ in (
+            (542, "BCA_body_regions", "nnUNetTrainerNoMirroring", BodyRegion),
+            (543, "BCA_body_parts", "nnUNetTrainer_1500epochs_NoMirroring", BodyPart)):
+        create_synthetic_model(root, tid, name, num_classes=max(enum_) + 1, trainer=trainer,
+                               patch_size=(16, 16, 8), spacing=(1.5, 1.5, 5.0),
+                               features=(4, 8), n_folds=5,
+                               label_names=[e.name for e in sorted(enum_, key=int) if e])
+    data = np.full((40, 36, 16), -1000, np.int16)
+    data[8:32, 8:28, :] = np.random.default_rng(1).integers(-200, 200, (24, 20, 16))
+    tn.save(tn.NiftiImage(data=data, affine=np.diag([-1.5, -1.5, 3.0, 1.0])),
+            tmp_path / "ct.nii.gz")
+    params = {"save_pdf": False, "compute_dtype": "float32"}
+    jinf.compute_all_models(tmp_path / "ct.nii.gz", tmp_path / "ref", ["bca"],
+                            bca_params=params, store=JStore(root))
+    tinf.compute_all_models(tmp_path / "ct.nii.gz", tmp_path / "got", ["bca"],
+                            bca_params=params, store=ModelStore(root), device="cpu")
+    assert _files(tmp_path / "got") == _files(tmp_path / "ref") == [
+        "bca-measurements.json", "body_parts.nii.gz", "body_regions.nii.gz",
+        "tissues.nii.gz"]
+    for name in ("body_parts.nii.gz", "body_regions.nii.gz", "tissues.nii.gz"):
+        want = np.asarray(jn.load(tmp_path / "ref" / name).data)
+        got = tn.load(tmp_path / "got" / name).data
+        assert got.shape == want.shape == data.shape
+        assert (got == want).mean() > 0.995 and len(np.unique(want)) > 2, name
 
 
 def test_defaults_to_cuda(study, tmp_path, monkeypatch):
@@ -281,3 +382,28 @@ def test_crop_cascade_matches_reference(tmp_path):
     want_m = json.loads((tmp_path / "ref" / "total-measurements.json").read_text())
     assert list(got_m["segmentations"]["liver_vessels"]) == \
         list(want_m["segmentations"]["liver_vessels"])
+
+
+def test_bca_recompute_false_reuses_cropped_files(bca_study, tmp_path):
+    """A second run with recompute=False predicts nothing: the BCA label
+    files (on the full grid) are cut to the run's body crop and give the
+    same report. (The reference fails here: it pairs the full-grid files
+    with the cropped CT.)"""
+    from boa_tpu_torch.testing import anatomy as tanat
+
+    kw = dict(totalsegmentator_params={"fast": True}, bca_params={"save_pdf": False},
+              device="cpu")
+    first = tinf.compute_all_models(bca_study / "ct.nii.gz", tmp_path, ["total", "bca"],
+                                    fake_predict=tanat.fake_predict_factory(), **kw)
+    report = (tmp_path / "bca-measurements.json").read_text()
+    labels = {n: (tmp_path / n).read_bytes() for n in BCA_FILES["bca"] if "nii" in n}
+
+    def no_call(*a):
+        raise AssertionError("a computed model ran again")
+
+    (tmp_path / "bca-measurements.json").unlink()
+    again = tinf.compute_all_models(bca_study / "ct.nii.gz", tmp_path, ["total", "bca"],
+                                    recompute=False, fake_predict=no_call, **kw)
+    assert again == first
+    assert (tmp_path / "bca-measurements.json").read_text() == report
+    assert {n: (tmp_path / n).read_bytes() for n in labels} == labels

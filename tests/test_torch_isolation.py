@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing every module of boa_tpu_torch
-loads neither JAX nor the JAX package, and its entry points default to the
+loads neither JAX nor the JAX package, nor pandas, cv2 or matplotlib (which
+the card machine is not known to have), and its entry points default to the
 card and raise without it unless the caller asks for the CPU."""
 
 import re
@@ -18,8 +19,8 @@ import importlib, pkgutil, sys
 import boa_tpu_torch
 for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
     importlib.import_module(m.name)
-bad = [k for k in sys.modules
-       if k in ("jax", "jaxlib", "boa_tpu") or k.startswith(("jax.", "jaxlib.", "boa_tpu."))]
+banned = ("jax", "jaxlib", "boa_tpu", "pandas", "cv2", "matplotlib")
+bad = [k for k in sys.modules if k.split(".")[0] in banned]
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad)
 sys.exit(1 if bad else 0)
 """
@@ -34,7 +35,8 @@ def test_import_loads_no_jax_and_no_reference_package():
 
 
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+boa_tpu\b"
-                     r"|from\s+boa_tpu(\.|\s+import\b))", re.M)
+                     r"|from\s+boa_tpu(\.|\s+import\b)"
+                     r"|(import|from)\s+(pandas|cv2|matplotlib)\b)", re.M)
 
 
 def test_sources_import_no_jax_and_no_reference_package():
