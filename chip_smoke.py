@@ -84,13 +84,15 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               `.nii.gz` agree > 0.99, bca-measurements.json has the same keys
               and Nones on both sides, launches tiles x folds x (4, 1, 1) with
               the split plan's finishing passes; (b) the BCA device passes at
-              512x512x300 on the port's anatomy phantom (an arm, 255
+              512x512x300 on the port's anatomy phantom (six body parts, 255
               fragments): `subclassify_tissues` with and without the median,
               the Builder's per-slice pass, `region_z_counts`, `prepare` (the
               density stacks) and `create_json` on the card against the CPU:
               tissues and counts equal, HU sums and the JSON within 1e-9
-              relative; seconds, spans and the peak, and each of the three
-              bincount passes timed against a loop of masked reductions; (c)
+              relative; seconds, spans and the peak, each of the three
+              bincount passes timed against a loop of masked reductions, and
+              the host's parts postprocess with a thread per label against
+              one thread (ABBA, equal results); (c)
               the 512x512x300 study from its file through
               `compute_all_models(["total", "bca"])` with `total` fast and both
               BCA models at the total_fast widths (128^3 patch, five folds):
@@ -1258,8 +1260,11 @@ def _json_max_rel(a, b, path="") -> float:
 
 def _bca_phantom(shape, spacing):
     """(CT, parts, regions, vertebra windows) of the port's anatomy phantom:
-    the x-most eighth of the body's parts an arm (the no-limb sums differ),
-    and 255 fragments in 4^3 blocks over 1 % of the regions."""
+    all six body parts (an arm in the body's outer eighth at each x end,
+    the head in the top tenth of the slices, a leg in each x half of the
+    bottom eighth, the torso between: the no-limb sums differ and the parts
+    postprocess has six labels), and 255 fragments in 4^3 blocks over 1 %
+    of the regions."""
     from boa_tpu_torch.bca.definitions import BodyPart
     from boa_tpu_torch.bca.report import AggregatableBodyPart, create_vertebrae_info
     from boa_tpu_torch.tasks.class_maps import get_class_map
@@ -1267,8 +1272,16 @@ def _bca_phantom(shape, spacing):
 
     ct = anatomy.synth_ct(shape, spacing)
     parts = anatomy.fake_parts_seg(shape, spacing)
-    arm = parts[: shape[0] // 8]
-    arm[arm > 0] = int(BodyPart.ARM_RIGHT)
+    body_x = np.flatnonzero(parts.any(axis=(1, 2)))
+    x0, x1, nz = int(body_x[0]), int(body_x[-1]) + 1, shape[2]
+    arm, mid = (x1 - x0) // 8, (x0 + x1) // 2
+    for xs, zs, part in ((slice(x0, x0 + arm), slice(None), BodyPart.ARM_LEFT),
+                         (slice(x1 - arm, x1), slice(None), BodyPart.ARM_RIGHT),
+                         (slice(None), slice(nz - nz // 10, nz), BodyPart.HEAD),
+                         (slice(None, mid), slice(0, nz // 8), BodyPart.LEG_LEFT),
+                         (slice(mid, None), slice(0, nz // 8), BodyPart.LEG_RIGHT)):
+        box = parts[xs, :, zs]
+        box[box > 0] = int(part)
     regions = anatomy.fake_regions_seg(shape, spacing)
     rng = np.random.default_rng(8)
     coarse = rng.random(tuple(-(-n // 4) for n in shape)) < 0.01
@@ -1278,6 +1291,31 @@ def _bca_phantom(shape, spacing):
         anatomy.fake_total_seg(shape, spacing),
         AggregatableBodyPart.ABDOMEN | AggregatableBodyPart.THORAX, get_class_map("total"))
     return ct, parts, regions, vertebrae
+
+
+def _parts_postprocess_ab(parts) -> dict:
+    """Seconds of the host's parts postprocess on `parts` with one thread
+    per label (as it runs) and with one thread (`os.cpu_count` pinned to
+    1), in the order threads, one, one, threads; the four results must be
+    equal."""
+    import os
+    from contextlib import nullcontext
+    from unittest import mock
+
+    from boa_tpu_torch.bca.postprocess import postprocess_part_segmentation
+
+    secs: dict = {"threads": [], "one_thread": []}
+    outs = []
+    for mode in ("threads", "one_thread", "one_thread", "threads"):
+        pin = mock.patch.object(os, "cpu_count", lambda: 1) if mode == "one_thread" \
+            else nullcontext()
+        with pin:
+            t0 = time.perf_counter()
+            outs.append(postprocess_part_segmentation(parts))
+            secs[mode].append(time.perf_counter() - t0)
+    assert all(np.array_equal(o, outs[0]) for o in outs[1:])
+    secs["labels"] = int(len(np.unique(outs[0]))) - 1
+    return secs
 
 
 def _one_hot_alternatives(torch, ct, tissues, regions, torso) -> dict:
@@ -1334,8 +1372,9 @@ def phase_bca(torch, rc, pc) -> dict:
     anatomy phantom: `subclassify_tissues` with and without the median, the
     Builder, `region_z_counts`, `prepare` and `create_json` on the card
     against the CPU (tissues and counts equal, HU sums and the JSON within
-    1e-9 relative), their seconds, spans and peak, and the bincount passes
-    against loops of masked reductions; (c) the 512x512x300 study from its
+    1e-9 relative), their seconds, spans and peak, the bincount passes
+    against loops of masked reductions, and the host's parts postprocess
+    with and without its threads; (c) the 512x512x300 study from its
     file through `compute_all_models(["total", "bca"])` with `total` fast
     and both BCA models at the total_fast widths with five folds: one
     warm-up and one timed run (seconds, spans, peak, launches, each model
@@ -1451,6 +1490,7 @@ def phase_bca(torch, rc, pc) -> dict:
         torch, ct_dev, gpu["builder"]._tissues_dev, gpu["builder"]._regions_dev,
         torch.from_numpy(parts == 1).to(dev))
     cpu = passes("cpu")
+    parts_ab = _parts_postprocess_ab(parts)
     g, c = gpu["builder"], cpu["builder"]
     hu_rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
                  for a, b in ((g._husums, c._husums), (g._husums_nl, c._husums_nl)))
@@ -1461,7 +1501,7 @@ def phase_bca(torch, rc, pc) -> dict:
         "hu_sum_max_rel": hu_rel, "json_max_rel": _json_max_rel(gpu["json"], cpu["json"]),
         "body_parts": gpu["json"]["body_parts"], "groups": list(gpu["json"]["aggregated"]),
         "tissue_voxels": np.bincount(gpu["tissues"].ravel(), minlength=8).tolist(),
-        "part_s": time.perf_counter() - t_part}
+        "parts_postprocess_s": parts_ab, "part_s": time.perf_counter() - t_part}
     emit({"phase": "bca", "part": "passes", **res["passes"]})
     for key in ("tissues", "tissues_median"):
         assert np.array_equal(gpu[key], cpu[key]), key
