@@ -172,9 +172,9 @@ def _parts_case(case):
 @pytest.mark.parametrize("case", ["anatomy", "edges", "edges_small", "torso_with_pockets",
                                   "speckle_9", "speckle_2"])
 def test_part_postprocess_matches_reference(case):
-    """The port's fill and hole rules against the reference's native path
-    (the sandbox builds it) and its cv2 path, on the pad-ring faces and on
-    faces clamped at the volume's edge."""
+    """The port's fill and hole rules against the reference's (its native
+    path where the library is built, else its cv2 path), on the pad-ring
+    faces and on faces clamped at the volume's edge."""
     seg, threshold = _parts_case(case)
     got = tpp.remove_small_labeled_objects(seg.copy(), threshold)
     np.testing.assert_array_equal(got, jpp.remove_small_labeled_objects(seg.copy(), threshold))
