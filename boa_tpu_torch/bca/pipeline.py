@@ -8,7 +8,7 @@ followed by its host postprocess; the tissue subclassification on the
 device; the examined body part; the per-vertebra slice windows from `total`;
 the report builder; `body_parts.nii.gz`, `body_regions.nii.gz`,
 `tissues.nii.gz`, `vertebrae.json` and `bca-measurements.json`. The PDF
-report waits for ROADMAP M9: `save_pdf=True` raises before any work.
+report waits for ROADMAP M9 (i): `save_pdf=True` raises before any work.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from boa_tpu_torch.io import nifti
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.tasks.registry import get_task
 from boa_tpu_torch.utils.timing import Spans
+from boa_tpu_torch.weights.store import ModelStore
 
 logger = logging.getLogger(__name__)
 
@@ -40,7 +41,7 @@ _POSTPROCESS = {"body_parts": bca_pp.postprocess_part_segmentation,
 
 
 def _no_pdf() -> NotImplementedError:
-    return NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9): "
+    return NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i)): "
                                "pass save_pdf=False")
 
 
@@ -158,7 +159,8 @@ def run_pipeline(
     cavity, 4 brain); `images_out` the three label images. With a `worker`
     (utils/stages.HostWorker) the body_parts postprocess runs behind the
     body_regions prediction and the saves behind the report; every file is
-    written when this returns. `device` defaults to the card. `spans`, when
+    written when this returns. `store` defaults to `ModelStore()`
+    (`$BOA_WEIGHTS_PATH`), `device` to the card. `spans`, when
     given, receives the seconds of `bca_inference`'s stages and of
     `tissues` (`tissues.*` its parts), `load_total`, `body_parts_wait`,
     `builder` (`builder.*`), `vertebrae`, `prepare`, `save` and
@@ -166,6 +168,7 @@ def run_pipeline(
     if save_pdf:
         raise _no_pdf()
     device = resolve_device(device)
+    store = store or ModelStore()
     output_dir = Path(output_dir)
     output_dir.mkdir(exist_ok=True, parents=True)
     ct_img = (input_image if isinstance(input_image, nifti.NiftiImage)

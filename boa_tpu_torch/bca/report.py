@@ -2,7 +2,7 @@
 the JSON report.
 
 Counterpart of `boa_tpu/bca/report.py` (body_composition_analysis
-`report/builder.py`) without the PDF, which waits for ROADMAP M9:
+`report/builder.py`) without the PDF, which waits for ROADMAP M9 (i):
 `AggregatableBodyPart.from_body_regions` (abdomen >= 200 mm of abdominal
 cavity, neck >= 100 mm above the mediastinum, thorax >= 200 mm overlapping
 the abdomen), the aggregation groups, the per-group describe statistics with
@@ -444,7 +444,7 @@ class Builder:
         }
 
     def create_pdf(self, **prepared) -> bytes:
-        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i))")
 
 
 def create_vertebrae_info(total_seg: np.ndarray,

@@ -11,7 +11,7 @@ labels go to `{output name}.nii.gz` (padded back to the full grid),
 `total-measurements.json` and `ct_pfav.nii.gz`. The BCA models
 (`BASE_MODELS`): `bca` runs `bca/pipeline.py:run_pipeline` with `total`'s
 labels of this run, `body_parts` and `body_regions` alone run
-`bca_inference`. The preview and the BCA PDF wait for ROADMAP M9 and raise.
+`bca_inference`. The preview and the BCA PDF wait for ROADMAP M9 (i) and raise.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from boa_tpu_torch.utils.constants import BASE_MODELS
 from boa_tpu_torch.utils.misc import (ADDITIONAL_MODELS_OUTPUT_NAME,
                                       convert_resampling_slices, np_json_default)
 from boa_tpu_torch.utils.timing import Spans
+from boa_tpu_torch.weights.store import ModelStore
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +81,7 @@ def compute_all_models(
 ) -> dict[str, int]:
     """Returns the study's voxel and slice counts and writes its files.
 
+    `store` defaults to `ModelStore()` (`$BOA_WEIGHTS_PATH`).
     `totalsegmentator_params` may hold `fast` (for `total`) and
     `license_number` (unused). `fast_bca` runs the BCA models on fold 0
     only; `bca_params` go to `run_pipeline` and must hold `save_pdf=False`
@@ -97,16 +99,17 @@ def compute_all_models(
     models_to_compute = list(models_to_compute)
     bca_params = dict(bca_params or {})
     if "bca" in models_to_compute and bca_params.get("save_pdf", True):
-        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9): "
+        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i)): "
                                   "pass bca_params={'save_pdf': False}")
     totalsegmentator_params = dict(totalsegmentator_params or {})
     if totalsegmentator_params.pop("preview", False):
-        raise NotImplementedError("the preview is not ported yet (ROADMAP M9)")
+        raise NotImplementedError("the preview is not ported yet (ROADMAP M9 (i))")
     fast_total = totalsegmentator_params.pop("fast", False)
     totalsegmentator_params.pop("license_number", None)
     if totalsegmentator_params:
         raise TypeError(f"unknown totalsegmentator_params {sorted(totalsegmentator_params)}")
     device = resolve_device(device)
+    store = store or ModelStore()
     sp = Spans(spans, device)
     segmentation_folder = pathlib.Path(segmentation_folder)
     segmentation_folder.mkdir(parents=True, exist_ok=True)

@@ -8,13 +8,15 @@ the device -> one prediction per sub-model, merged into the task's label
 space by a device LUT (later sub-models over earlier ones) -> strip
 auxiliary labels, blob postprocessing on the host -> order-0 (or one-hot
 order-1) back-resample and inverse orientation -> pad back / undo the crop
--> remove labels outside the dilated crop mask. With `statistics=True`, the
+-> remove labels outside the dilated crop mask -> add one to the install's
+prediction counter (utils/persistent_config.py). With `statistics=True`, the
 per-class volumes and intensities on the model grid, from the device labels
 and the resampled CT (measure/statistics.py).
 """
 
 from __future__ import annotations
 
+import logging
 import pickle
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -33,7 +35,10 @@ from boa_tpu_torch.ops import postprocessing as pped
 from boa_tpu_torch.ops import resample as rs
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.tasks.registry import TaskConfig, resolve_task
+from boa_tpu_torch.utils.persistent_config import increase_prediction_counter
 from boa_tpu_torch.utils.timing import Spans
+
+logger = logging.getLogger(__name__)
 
 # registry name -> class map key
 _CLASS_MAP_KEY = {
@@ -356,6 +361,10 @@ def predict_image(
         seg_out.data = pped.remove_outside_of_mask(
             np.asarray(seg_out.data), np.asarray(crop_mask.data) > 0,
             addon=max(1, int(mm / float(np.mean(img_orig.zooms)))))
+    try:  # per-install prediction counter (utils/persistent_config.py)
+        increase_prediction_counter()
+    except Exception:  # bookkeeping never breaks a study
+        logger.debug("prediction counter update failed", exc_info=True)
     seg_out.set_label_map(label_map)
     sp.mark("back_resample+pad")
     return PredictImageResult(seg=seg_out, seg_model_grid=seg_model_grid,

@@ -2,7 +2,8 @@
 
 Counterpart of `boa_tpu/utils/misc.py` (body_organ_analysis
 `compute/util.py`): the output names of the additional models, the slice
-count after a resample, label masks and the JSON hook for numpy values.
+count after a resample, label masks, the workbook's CamelCase names and the
+JSON hook for numpy values.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ def create_mask(region_data: np.ndarray, labels) -> np.ndarray:
     if isinstance(labels, (int, np.integer)):
         return region_data == labels
     return np.isin(region_data, labels)
+
+
+def convert_name(name: str) -> str:
+    """snake_case -> CamelCase, as the workbook names models and regions."""
+    return "".join(s.capitalize() for s in name.split("_"))
 
 
 def np_json_default(o):

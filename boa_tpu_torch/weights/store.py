@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 from pathlib import Path
 
 import numpy as np
@@ -22,20 +23,33 @@ from boa_tpu_torch.models.unet import ArchConfig
 from boa_tpu_torch.plans.plans import ModelPlans, synthetic_plans
 from boa_tpu_torch.weights import convert as cv
 
+DEFAULT_WEIGHTS_ENV = "BOA_WEIGHTS_PATH"
+
+
+def weights_root() -> Path:
+    """`$BOA_WEIGHTS_PATH`, else ``~/.boa_tpu/weights``."""
+    root = os.environ.get(DEFAULT_WEIGHTS_ENV)
+    if root:
+        return Path(root)
+    return Path.home() / ".boa_tpu" / "weights"
+
 
 class ModelStore:
-    """Resolves (task_id, trainer, configuration) -> (plans, fold params)."""
+    """Resolves (task_id, trainer, configuration) -> (plans, fold params).
+    With no `root`, the folder of `weights_root()`."""
 
-    def __init__(self, root: str | Path):
-        self.root = Path(root)
+    def __init__(self, root: str | Path | None = None):
+        self.root = Path(root) if root else weights_root()
 
     def model_dir(self, task_id: int, trainer: str = "nnUNetTrainer",
                   plans_name: str = "nnUNetPlans",
                   model: str = "3d_fullres") -> Path:
         matches = sorted(self.root.glob(f"Dataset{task_id:03d}_*"))
         if not matches:
-            raise FileNotFoundError(f"No weights for task {task_id} under "
-                                    f"{self.root}")
+            raise FileNotFoundError(
+                f"No weights for task {task_id} under {self.root}: put the "
+                f"converted weights there or point {DEFAULT_WEIGHTS_ENV} at "
+                f"their folder (nothing is downloaded)")
         return matches[0] / f"{trainer}__{plans_name}__{model}"
 
     def load(self, task_id: int, trainer: str = "nnUNetTrainer",

@@ -99,18 +99,36 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               one warm-up and one timed run with seconds, spans (predict_543,
               predict_542, both postprocesses, tissues, builder, prepare, save,
               save_wait), peak memory, launches tiles x folds x (4, 1, 1) and
-              each model loaded once
+              each model loaded once; the warm-up alone when the cli phase
+              runs too, whose (c) times the same study through the CLI
+9. cli      - the front door, `python -m boa_tpu_torch`, from a CT file to its
+              files and output.xlsx: (a) the command as a subprocess with
+              `--device cuda` on 8 (a)'s small stores and 96x96x64 file,
+              `-m total+bca --fast-bca --bca-no-pdf`, contrast on: exit 0, the
+              six sheets, debug_information.txt names the card, every label
+              file agrees > 0.99 with the same command in this process on the
+              CPU, and the prediction counter (BOA_TPU_CONFIG_DIR) rose by the
+              number of predict_image calls; (b) `analyze_ct` through the
+              anatomy phantom's hook at 512x512x300 (`total+bca`, CNR
+              adjustment, contrast on) on the card and on the CPU: every
+              numeric cell of every sheet within 1e-6 relative, strings and
+              empty cells equal; (c) `cli.run` in this process on 8 (c)'s
+              file and stores, `-m total+bca --fast-total --bca-no-pdf` (five
+              BCA folds, contrast on): one timed run after 8 (c)'s warm-up
+              with seconds, analyze_ct's stats, spans, peak memory, launches
+              tiles x folds x (4, 1, 1), no K5 launch and no model loaded
+              again. It says why the BCA PDF and the preview were not run
 
 The device phase also says whether pandas, matplotlib and cv2 import on the
 card machine. With --profile, the fused, study and total phases each add one
 more run under torch.profiler (device busy share, kernels by device time),
 and the measure phase one more run of (b) on the card. With --phases=a,b (of
-kernels, forward, fused, study, total, measure, bca) only those phases run
+kernels, forward, fused, study, total, measure, bca, cli) only those phases run
 after the device phase, and the kernel summary line is left out. Each phase
-prints one JSON line (the total, measure and bca phases one per part). Then
-come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are the
-fast study's, `launches_total` the full total study's, `launches_bca` the
-BCA study's) and, last,
+prints one JSON line (the total, measure, bca and cli phases one per part).
+Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
+the fast study's, `launches_total` the full total study's, `launches_bca` the
+BCA study's, `launches_cli` the CLI study's) and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -120,6 +138,8 @@ Weights are random, drawn from fixed seeds.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -128,7 +148,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca")
+ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -1298,7 +1318,6 @@ def _parts_postprocess_ab(parts) -> dict:
     per label (as it runs) and with one thread (`os.cpu_count` pinned to
     1), in the order threads, one, one, threads; the four results must be
     equal."""
-    import os
     from contextlib import nullcontext
     from unittest import mock
 
@@ -1361,7 +1380,7 @@ def _one_hot_alternatives(torch, ct, tissues, regions, torso) -> dict:
     return out
 
 
-def phase_bca(torch, rc, pc) -> dict:
+def phase_bca(torch, rc, pc, timed: bool = True) -> dict:
     """The BCA chain. (a) `compute_all_models(ct_path, out, ["total", "bca"])`
     on small stores (the five sub-models of 6 (a), body_parts and
     body_regions with five folds, widths 32/64/128, 32^3 patch) from a
@@ -1377,8 +1396,9 @@ def phase_bca(torch, rc, pc) -> dict:
     with and without its threads; (c) the 512x512x300 study from its
     file through `compute_all_models(["total", "bca"])` with `total` fast
     and both BCA models at the total_fast widths with five folds: one
-    warm-up and one timed run (seconds, spans, peak, launches, each model
-    loaded once)."""
+    warm-up and, with `timed`, one timed run (seconds, spans, peak,
+    launches, each model loaded once). Without `timed` the cli phase's (c)
+    times the same study through the CLI."""
     import json
     from pathlib import Path
 
@@ -1386,9 +1406,7 @@ def phase_bca(torch, rc, pc) -> dict:
     from boa_tpu_torch.bca.tissues import subclassify_tissues
     from boa_tpu_torch.compute.inference import compute_all_models
     from boa_tpu_torch.io import nifti
-    from boa_tpu_torch.tasks.class_maps import get_class_map
 
-    label_names = list(get_class_map("total").values())
     params = {"save_pdf": False}
     res = {}
 
@@ -1517,45 +1535,314 @@ def phase_bca(torch, rc, pc) -> dict:
     # --- (c) the 512x512x300 study from its file: total fast, both BCA models
     #     at the total_fast widths with five folds
     t_part = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        patch = (128, 128, 128)
-        _store(tmp, TOTAL_FAST_FEATURES, patch, ["background"] + label_names)
-        _bca_store(tmp, TOTAL_FAST_FEATURES, patch)
-        store = _CountingStore(tmp)
-        img = _bench_ct(shape, spacing)
-        nifti.save(img, tmp / "ct.nii.gz")
-        expect = _bca_tiles(img, patch, (3.0, 3.0, 3.0))
-        store_s = time.perf_counter() - t_part
-        runs = []
-        for i in range(2):
-            spans = {}
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset()
-            t0 = time.perf_counter()
-            compute_all_models(tmp / "ct.nii.gz", tmp / f"out{i}", ["total", "bca"],
-                               store=store, totalsegmentator_params={"fast": True},
-                               bca_params=params, spans=spans)
-            dt = time.perf_counter() - t0
-            runs.append({"s": dt, "spans": spans, "launches": launches(),
-                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-        out = outputs(tmp / "out1", shape)
-        res["study"] = {
-            "sec": runs[1]["s"], "warmup_s": runs[0]["s"], "store_write_s": store_s,
-            "peak_mem_gib": runs[1]["peak_mem_gib"], "spans": runs[1]["spans"],
-            "launches": runs[1]["launches"], "expected": expect,
-            "checkpoint_loads": store.loads, "files": out["files"],
-            "labels_present": {n: int(len(np.unique(v))) for n, v in out["labels"].items()},
-            "body_parts": out["report"]["body_parts"],
-            "groups": list(out["report"]["aggregated"]),
-            "part_s": time.perf_counter() - t_part}
+    study = _bca_study()
+    tmp, store, img = study["root"], study["store"], study["img"]
+    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))
+    runs = []
+    for i in range(2 if timed else 1):
+        spans = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        compute_all_models(tmp / "ct.nii.gz", tmp / f"out{i}", ["total", "bca"],
+                           store=store, totalsegmentator_params={"fast": True},
+                           bca_params=params, spans=spans)
+        dt = time.perf_counter() - t0
+        runs.append({"s": dt, "spans": spans, "launches": launches(),
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    study["warm"] = True
+    out = outputs(tmp / f"out{len(runs) - 1}", shape)
+    res["study"] = {
+        "sec": runs[1]["s"] if timed else None, "warmup_s": runs[0]["s"],
+        "store_write_s": study["write_s"],
+        "peak_mem_gib": runs[-1]["peak_mem_gib"], "spans": runs[-1]["spans"],
+        "launches": runs[-1]["launches"], "expected": expect,
+        "checkpoint_loads": store.loads, "files": out["files"],
+        "labels_present": {n: int(len(np.unique(v))) for n, v in out["labels"].items()},
+        "body_parts": out["report"]["body_parts"],
+        "groups": list(out["report"]["aggregated"]),
+        "part_s": time.perf_counter() - t_part}
     emit({"phase": "bca", "part": "study", **res["study"]})
     for r in runs:
         assert (r["spans"]["tiles"], r["spans"]["tile_forwards"]) == \
             (expect["tiles"], expect["tile_forwards"]), r["spans"]
         assert r["launches"] == _want_launches(expect["tile_forwards"]), r["launches"]
     assert store.loads == 3, store.loads   # total_fast, body_parts, body_regions
+    return res
+
+
+_BCA_STUDY: dict = {}
+
+
+def _bca_study() -> dict:
+    """bca (c)'s store (`total_fast` and both 5-fold BCA models at the
+    total_fast widths, 128^3 patch) and its 512x512x300 CT file, written once
+    per run of this script (the folder lives until the script exits) and
+    shared with the cli phase's (c)."""
+    if not _BCA_STUDY:
+        from pathlib import Path
+
+        from boa_tpu_torch.io import nifti
+        from boa_tpu_torch.tasks.class_maps import get_class_map
+
+        t0 = time.perf_counter()
+        folder = tempfile.TemporaryDirectory()
+        root = Path(folder.name)
+        patch = (128, 128, 128)
+        _store(root, TOTAL_FAST_FEATURES, patch,
+               ["background"] + list(get_class_map("total").values()))
+        _bca_store(root, TOTAL_FAST_FEATURES, patch)
+        img = _bench_ct(STUDY_SHAPE, (1.5, 1.5, 3.0))
+        nifti.save(img, root / "ct.nii.gz")
+        _BCA_STUDY.update(folder=folder, root=root, img=img, store=_CountingStore(root),
+                          warm=False, write_s=time.perf_counter() - t0)
+    return _BCA_STUDY
+
+
+CLI_SHEETS = ["info", "regions-statistics", "cnr-adjusted", "bca-aggregated-measurements",
+              "bca-slice-measurements", "bca-slice-measurements_no_ext"]
+
+
+def _sheets_max_rel(got: dict, want: dict) -> float:
+    """Two read-back workbooks: the same sheets, rows and widths, strings,
+    bools and empty cells equal, or raise; returns the largest relative
+    difference of their numbers (an absolute 1e-12 counts as equal)."""
+    if list(got) != list(want):
+        raise AssertionError(f"sheets differ: {list(got)} != {list(want)}")
+    worst = 0.0
+    for name in want:
+        if len(got[name]) != len(want[name]):
+            raise AssertionError(f"{name}: {len(got[name])} rows != {len(want[name])}")
+        for r, (g, w) in enumerate(zip(got[name], want[name])):
+            if len(g) != len(w):
+                raise AssertionError(f"{name} row {r}: width {len(g)} != {len(w)}")
+            for a, b in zip(g, w):
+                numeric = all(isinstance(v, (int, float)) and not isinstance(v, bool)
+                              for v in (a, b))
+                if not numeric:
+                    if a != b or type(a) is not type(b):
+                        raise AssertionError(f"{name} row {r}: {a!r} != {b!r}")
+                elif abs(a - b) > 1e-12:
+                    worst = max(worst, abs(a - b) / max(abs(a), abs(b)))
+    return worst
+
+
+def _cli_env(**extra) -> dict:
+    """This process's environment without the CLI's env mirrors, plus `extra`."""
+
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "DEVICE", "NVIDIA_ID", "THEME", "FAST_BCA", "FAST_TOTAL", "BCA_NO_PDF",
+        "SKIP_CONTRAST_INFORMATION", "PREDICT_FAST", "BOA_TEST_ANATOMY", "BOA_PROFILE",
+        "BOA_CONTRAST_MODEL", "BOA_GIT_MODEL", "BOA_PHASE_MODEL")}
+    env.update(extra)
+    return env
+
+
+def phase_cli(torch, rc, pc) -> dict:
+    """The front door, `python -m boa_tpu_torch`, from a CT file to its
+    files and output.xlsx. (a) the command as a subprocess with `--device
+    cuda` on bca (a)'s small stores (one BCA fold: --fast-bca) and 96x96x64
+    file, `-m total+bca --bca-no-pdf`, contrast on: exit 0, the six sheets,
+    the debug file names the card, labels agree > 0.99 with the same run
+    in-process on the CPU, the prediction counter rose by the number of
+    predict_image calls; (b) `analyze_ct` through the anatomy phantom's hook
+    at 512x512x300 (statistics, the engine and the BCA passes on the device)
+    on the card and on the CPU: every numeric cell of every sheet within
+    1e-6 relative, strings and empty cells equal; (c) `cli.run` in-process on
+    bca (c)'s 512x512x300 file and stores, `-m total+bca --fast-total
+    --bca-no-pdf`, five BCA folds, contrast on: one timed run after bca (c)'s
+    warm-up with seconds, analyze_ct's stats, spans, peak memory and
+    launches tiles x folds x (4, 1, 1), no K5, no model loaded again."""
+    import json
+    from pathlib import Path
+
+    from boa_tpu_torch import cli, commands
+    from boa_tpu_torch.bca import pipeline as bca_pipeline
+    from boa_tpu_torch.compute import inference as inference_mod
+    from boa_tpu_torch.compute.inference import compute_all_models
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.io.xlsx import read_xlsx
+    from boa_tpu_torch.testing import anatomy
+    from boa_tpu_torch.weights.store import ModelStore
+
+    repo = Path(__file__).resolve().parent
+    card = torch.cuda.get_device_name(0)
+    res = {}
+
+    def launches() -> dict:
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset() -> None:
+        rc.reset_launches()
+        pc.reset_launches()
+
+    def files_of(folder: Path) -> dict:
+        """The label files load, the workbook has its six sheets and the
+        debug file names the card."""
+        files = sorted(p.name for p in folder.iterdir())
+        for name in ("output.xlsx", "debug_information.txt", "total.nii.gz",
+                     "total-measurements.json", "bca-measurements.json", "tissues.nii.gz"):
+            assert name in files, (name, files)
+        sheets = read_xlsx(folder / "output.xlsx")
+        assert list(sheets) == CLI_SHEETS, list(sheets)
+        return {"files": files, "sheets": sheets,
+                "labels": {n: nifti.load(folder / n).data for n in files
+                           if n.endswith(".nii.gz")},
+                "debug": (folder / "debug_information.txt").read_text()}
+
+    # --- (a) the command as a subprocess on the card, against the CPU
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        patch = (32, 32, 32)
+        _parts_store(tmp / "w", (32, 64, 128), patch, (1.5, 1.5, 1.5))
+        _bca_store(tmp / "w", (32, 64, 128), patch)
+        nifti.save(_bench_ct((96, 96, 64), (1.5, 1.5, 3.0)), tmp / "ct.nii.gz")
+        args = ["-i", str(tmp / "ct.nii.gz"), "-m", "total+bca", "--fast-bca", "--bca-no-pdf"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "boa_tpu_torch", *args, "-o", str(tmp / "gpu"),
+             "--device", "cuda"], cwd=repo, capture_output=True, text=True, timeout=600,
+            env=_cli_env(BOA_WEIGHTS_PATH=str(tmp / "w"), BOA_TPU_CONFIG_DIR=str(tmp / "cfg")))
+        sub_s = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        counter = json.loads((tmp / "cfg" / "config.json").read_text())["prediction_counter"]
+        # the same run in this process on the CPU, counting predict_image's calls
+        calls = []
+
+        def counted(fn):
+            def call(*a, **kw):
+                calls.append(a[1])
+                return fn(*a, **kw)
+            return call
+
+        saved = {m: m.predict_image for m in (inference_mod, bca_pipeline)}
+        env_before = dict(os.environ)
+        os.environ.update(BOA_WEIGHTS_PATH=str(tmp / "w"),
+                          BOA_TPU_CONFIG_DIR=str(tmp / "cfg_cpu"))
+        try:
+            for m, fn in saved.items():
+                m.predict_image = counted(fn)
+            t0 = time.perf_counter()
+            cli.run([*args, "-o", str(tmp / "cpu"), "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+        finally:
+            for m, fn in saved.items():
+                m.predict_image = fn
+            os.environ.clear()
+            os.environ.update(env_before)
+        cpu_counter = json.loads((tmp / "cfg_cpu" / "config.json").read_text())[
+            "prediction_counter"]
+        gpu, cpu = files_of(tmp / "gpu"), files_of(tmp / "cpu")
+        res["command"] = {
+            "subprocess_s": sub_s, "cpu_in_process_s": cpu_s, "files": gpu["files"],
+            "agree": {n: float((gpu["labels"][n] == cpu["labels"][n]).mean())
+                      for n in gpu["labels"]},
+            "labels_present": {n: int(len(np.unique(v))) for n, v in gpu["labels"].items()},
+            "prediction_counter": counter, "predict_image_calls": calls,
+            "debug_header": gpu["debug"].split("\n\n")[0].splitlines(),
+            "info": gpu["sheets"]["info"], "part_s": time.perf_counter() - t_part}
+    emit({"phase": "cli", "part": "command", **res["command"]})
+    assert gpu["files"] == cpu["files"], (gpu["files"], cpu["files"])
+    assert gpu["debug"].startswith("Platform: ") and card in gpu["debug"]
+    assert min(res["command"]["agree"].values()) > 0.99, res["command"]["agree"]
+    assert counter == cpu_counter == len(calls) == 3, (counter, cpu_counter, calls)
+    assert any(r[0] == "PredictedContrastPhase" for r in gpu["sheets"]["info"])
+
+    # --- (b) the sheets through the anatomy phantom's hook, card against CPU
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spacing = (1.5, 1.5, 3.0)
+        nifti.save(nifti.NiftiImage(data=anatomy.synth_ct(STUDY_SHAPE, spacing),
+                                    affine=np.diag([*spacing, 1.0])), tmp / "ct.nii.gz")
+        kw = dict(models=["total", "bca"], fast_total=True, bca_pdf=False,
+                  total_preview=False, cnr_adjustment=True)
+        sec, stats, sheets = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            path, stats[device] = commands.analyze_ct(
+                tmp / "ct.nii.gz", tmp / device, tmp / device,
+                fake_predict=anatomy.fake_predict_factory(), device=device, **kw)
+            sec[device] = time.perf_counter() - t0
+            sheets[device] = read_xlsx(path)
+        res["sheets"] = {
+            "sec": sec, "stats": {d: {k: v for k, v in s.items() if k.endswith("_time")}
+                                  for d, s in stats.items()},
+            "rows": {n: len(v) for n, v in sheets["cuda"].items()},
+            "max_rel": _sheets_max_rel(sheets["cuda"], sheets["cpu"]),
+            "info": sheets["cuda"]["info"], "part_s": time.perf_counter() - t_part}
+    emit({"phase": "cli", "part": "sheets", **res["sheets"]})
+    assert list(sheets["cuda"]) == CLI_SHEETS
+    assert res["sheets"]["max_rel"] <= 1e-6, res["sheets"]["max_rel"]
+    assert len(sheets["cuda"]["bca-slice-measurements"]) == STUDY_SHAPE[2] + 1
+    assert any(r[0] == "PredictedContrastPhase" for r in sheets["cuda"]["info"])
+
+    # --- (c) the full-width study through cli.run, after bca (c)'s warm-up
+    t_part = time.perf_counter()
+    study = _bca_study()
+    root, img = study["root"], study["img"]
+    if not study["warm"]:   # the cli phase alone: warm up as bca (c) does
+        compute_all_models(root / "ct.nii.gz", root / "warm", ["total", "bca"],
+                           store=study["store"], totalsegmentator_params={"fast": True},
+                           bca_params={"save_pdf": False})
+        study["warm"] = True
+    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))
+    captured, spans, loads = {}, {}, []
+    analyze_ct, load = commands.analyze_ct, ModelStore.load
+
+    def analyze_ct_spans(**kw):
+        captured["result"] = analyze_ct(spans=spans, **kw)
+        return captured["result"]
+
+    def load_counted(self, *a, **kw):
+        loads.append(a[0] if a else kw.get("task_id"))
+        return load(self, *a, **kw)
+
+    env_before = dict(os.environ)
+    os.environ.update(BOA_WEIGHTS_PATH=str(root), BOA_TPU_CONFIG_DIR=str(root / "cfg"))
+    commands.analyze_ct, ModelStore.load = analyze_ct_spans, load_counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        cli.run(["-i", str(root / "ct.nii.gz"), "-o", str(root / "cli"), "-m", "total+bca",
+                 "--fast-total", "--bca-no-pdf"])
+        dt = time.perf_counter() - t0
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        commands.analyze_ct, ModelStore.load = analyze_ct, load
+        os.environ.clear()
+        os.environ.update(env_before)
+    out = files_of(root / "cli")
+    stats = captured["result"][1]
+    # the stage spans analyze_ct logs (at INFO under the CLI) into the debug file
+    logged = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\| ([^|\n]+) took ([0-9.]+) s$", out["debug"], re.M)}
+    res["study"] = {
+        "sec": dt, "stats": {k: v for k, v in stats.items()
+                             if k.endswith("_time") or k in ("iv_contrast_phase",
+                                                             "git_contrast", "bca_regions")},
+        "logged_spans": logged,
+        "peak_mem_gib": peak, "spans": spans, "launches": got, "expected": expect,
+        "checkpoint_loads": loads, "checkpoint_loads_bca_study": study["store"].loads,
+        "files": out["files"], "rows": {n: len(v) for n, v in out["sheets"].items()},
+        "info": out["sheets"]["info"], "part_s": time.perf_counter() - t_part}
+    emit({"phase": "cli", "part": "study", **res["study"]})
+    assert card in out["debug"] and "Contrast phase prediction" in logged, logged
+    assert (spans["tiles"], spans["tile_forwards"]) == \
+        (expect["tiles"], expect["tile_forwards"]), spans
+    assert got == _want_launches(expect["tile_forwards"]), got
+    # each model loaded once: by bca (c) (or the warm-up), none here
+    assert not loads and study["store"].loads == 3, (loads, study["store"].loads)
+    emit({"phase": "cli", "part": "renderers",
+          "bca_pdf": "not run: the PDF renderer is not ported (ROADMAP M9 (i)); "
+                     "--bca-no-pdf is required",
+          "preview": "not run: the preview renderer is not ported (ROADMAP M9 (i)); "
+                     "--preview raises"})
     return res
 
 
@@ -1576,12 +1863,13 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study, total, bca) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total, bca, cli) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
             summary.append(dict(_row(name, fused_cases, fused_cases, fused["launches"]),
-                                finish_launches=fused["finish_launches"]))
+                                finish_launches=fused["finish_launches"],
+                                launches_cli=cli["study"]["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -1596,6 +1884,7 @@ def _summary(cases, fused_cases, fused, study, total, bca) -> list[dict]:
         # on the BCA study (total fast and two 5-fold models)
         row["launches_total"] = total["study"]["launches"][name]
         row["launches_bca"] = bca["study"]["launches"][name]
+        row["launches_cli"] = cli["study"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -1614,6 +1903,10 @@ def main() -> int:
     from boa_tpu_torch.ops import rowconv as rc
 
     resolve_device("cuda")  # pins the float32 precision flags
+    # predict_image counts predictions in the install config: keep this
+    # run's counts in a folder of its own
+    config_dir = tempfile.TemporaryDirectory()
+    os.environ.setdefault("BOA_TPU_CONFIG_DIR", config_dir.name)
     profile_run = "--profile" in sys.argv[1:]
     phases = ALL_PHASES
     for arg in sys.argv[1:]:
@@ -1637,9 +1930,13 @@ def main() -> int:
     if "measure" in phases:
         phase_measure(torch, rc, pc, profile_run)
     if "bca" in phases:
-        bca = phase_bca(torch, rc, pc)
+        # with the cli phase after it, bca (c) only warms up: the cli phase
+        # times the same study through the CLI
+        bca = phase_bca(torch, rc, pc, timed="cli" not in phases)
+    if "cli" in phases:
+        cli = phase_cli(torch, rc, pc)
     if phases == ALL_PHASES:
-        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca)})
+        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

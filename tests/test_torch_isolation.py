@@ -21,12 +21,16 @@ for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
     importlib.import_module(m.name)
 banned = ("jax", "jaxlib", "boa_tpu", "pandas", "cv2", "matplotlib")
 bad = [k for k in sys.modules if k.split(".")[0] in banned]
-print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad)
-sys.exit(1 if bad else 0)
+front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"}
+print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
+      sorted(front - set(sys.modules)))
+sys.exit(1 if bad or not front <= set(sys.modules) else 0)
 """
 
 
 def test_import_loads_no_jax_and_no_reference_package():
+    """The walk imports every module, the front door's (cli, __main__,
+    commands) among them."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
