@@ -5,8 +5,9 @@ same flags, the same env-var fallbacks (`DEVICE, THEME, LICENSE_NUMBER,
 FAST_BCA, FAST_TOTAL, BCA_NO_PDF, SKIP_CONTRAST_INFORMATION, VERBOSE`, and
 the deprecated `PREDICT_FAST`), the same console logging (root at WARNING,
 the package's loggers at INFO, shown with --verbose) and the
-`BOA_TEST_ANATOMY` fake-inference hook. The device is the card unless
-`--device cpu`; without CUDA the run stops. What is not ported raises
+`BOA_TEST_ANATOMY` fake-inference hook. The input (`-i`) is a DICOM series
+directory, the default `/dicoms`, or a NIfTI file. The device is the card
+unless `--device cpu`; without CUDA the run stops. What is not ported raises
 before any model runs: `--radiomics` (ROADMAP M9 (iii)), `--preview` and
 `bca` without `--bca-no-pdf` (M9 (i)).
 """
@@ -30,8 +31,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         "boa_tpu_torch", description="Body and Organ Analysis on PyTorch / CUDA")
     parser.add_argument("-i", "--input-image", type=Path, default="/dicoms",
-                        help="Path to the NIfTI file (DICOM directories are not "
-                             "supported yet)")
+                        help="Path to the NIfTI file or DICOM directory")
     parser.add_argument("-o", "--output-dir", type=Path, default="/workspace",
                         help="Path to the output files from the BOA calculation")
     parser.add_argument("--use-study-prefix", default=False, action="store_true",

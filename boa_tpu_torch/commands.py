@@ -1,16 +1,18 @@
-"""End-to-end study orchestrator: a CT file to its files and `output.xlsx`.
+"""End-to-end study orchestrator: a CT file or DICOM series to its files
+and `output.xlsx`.
 
 Counterpart of `boa_tpu/commands.py` (body_organ_analysis
 `commands.py:41-288`): the same `analyze_ct` stages and stats keys, the same
 workbook sheets and `debug_information.txt`. Each stage's wall time is a
 `_timed` span; `RunDebugFile` sends every log record of the run to the
-debug file behind an environment header. Where the port differs: the
-header names torch and the device (with the card's name), `BOA_PROFILE`
-records a `torch.profiler` trace, the input must be a NIfTI file (DICOM
-ingestion is ROADMAP M9 (ii)), and `device` and `store` reach
-`compute_all_models`. What is not ported raises before any work: the
-preview and the BCA PDF (M9 (i)), a DICOM input (M9 (ii)) and a trained
-sklearn contrast bundle (M9 (vi)).
+debug file behind an environment header. The input is a NIfTI file or a
+DICOM series directory, which the ingest stage (`io/dicom_io.py`) writes
+to `image.nii.gz` with its metadata rows for the `info` sheet. Where the
+port differs: the header names torch and the device (with the card's
+name), `BOA_PROFILE` records a `torch.profiler` trace, and `device` and
+`store` reach `compute_all_models`. What is not ported raises before any
+work: the preview and the BCA PDF (M9 (i)) and a trained sklearn contrast
+bundle (M9 (vi)).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from boa_tpu_torch.compute.inference import compute_all_models
 from boa_tpu_torch.compute.ts_metrics import compute_segmentator_metrics
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.io import nifti, xlsx
+from boa_tpu_torch.io.dicom_io import get_image_info
 from boa_tpu_torch.io.xlsx import Table
 from boa_tpu_torch.ops.connected_components import histogram_u8
 from boa_tpu_torch.utils.misc import ADDITIONAL_MODELS_OUTPUT_NAME
@@ -165,15 +168,12 @@ def _environment_header(device: torch.device, models: list[str], fast_bca: bool,
     return "".join(f"{k}: {v}\n" for k, v in rows) + "\n"
 
 
-def check_input(input_folder: Path) -> None:
-    """A NIfTI file, or raise: DICOM ingestion is not ported."""
+def _load_study(input_folder: Path, out: Path) -> tuple[Path, list[dict[str, Any]]]:
+    """The input as a NIfTI path, with the DICOM metadata rows if it is a
+    series: a series is validated and written to `out/image.nii.gz`."""
     if input_folder.is_file() and ".nii" in input_folder.name.lower():
-        return
-    if not input_folder.exists():
-        raise FileNotFoundError(f"input {input_folder} does not exist")
-    raise NotImplementedError(
-        f"{input_folder} is not a NIfTI file: DICOM ingestion is not ported yet "
-        f"(ROADMAP M9 (ii))")
+        return input_folder, []
+    return get_image_info(input_folder=input_folder, output_folder=out)
 
 
 def _bca_regions_flag(seg_output: Path) -> int | None:
@@ -243,15 +243,17 @@ def analyze_ct(
     carries this study's file saves into the caller's next work, and the
     caller reaps it; without one every file is on disk when this returns.
     `spans`, when given, receives `compute_all_models`' stage seconds.
+    `input_folder` is a NIfTI file or a DICOM series directory.
     `total_preview` and `bca_pdf` (the reference's defaults) are not ported
-    and raise, as do a DICOM input and a trained contrast bundle, before
-    any work."""
+    and raise, as does a trained contrast bundle, before any work; so does
+    an input that does not exist."""
     input_folder = Path(input_folder)
     processed_output_folder = Path(processed_output_folder)
     excel_output_folder = Path(excel_output_folder)
     models = list(models)
     device = resolve_device(device)
-    check_input(input_folder)
+    if not input_folder.exists():
+        raise FileNotFoundError(f"input {input_folder} does not exist")
     if total_preview:
         raise NotImplementedError("the preview is not ported yet (ROADMAP M9 (i))")
     if bca_pdf and "bca" in models:
@@ -283,11 +285,13 @@ def analyze_ct(
         stats: dict[str, Any] = {"git_hash": __githash__, "boa_version": __version__}
         start_total = time()
 
-        # -- stage: ingest (a NIfTI file; check_input refused the rest) ------
-        ct_path = input_folder
+        # -- stage: ingest --------------------------------------------------
+        with _timed(stats, None, "Study ingest"):
+            ct_path, dicom_info = _load_study(input_folder, processed_output_folder)
         ct_info: list[dict[str, Any]] = [
             {"name": "BOAVersion", "value": __version__},
             {"name": "BOAGitHash", "value": __githash__},
+            *dicom_info,
         ]
 
         # -- stage: segmentation models ------------------------------------

@@ -11,8 +11,11 @@ computed from the files when it is missing), give
   (`boa_tpu_torch/resources/git_contrast_classifiers_boa_tpu.json.*`,
   trained on synthetic phantoms) through `compute/xgb.py`. `BOA_GIT_MODEL`
   names another fold stem, or ``heuristic`` for the bowel-HU rule.
-A trained sklearn bundle (`BOA_CONTRAST_MODEL`) and `fit_contrast_model`
-need sklearn and are not ported (ROADMAP M9 (vi)): setting one raises.
+A trained sklearn bundle and `fit_contrast_model` need sklearn and are not
+ported (ROADMAP M9 (vi)): where the reference would load a bundle (an
+explicit path or `BOA_CONTRAST_MODEL` that exists, or
+``~/.boa_tpu/contrast_model.pkl``) the port raises; a path that does not
+exist is ignored, as the reference ignores it.
 """
 
 from __future__ import annotations
@@ -74,15 +77,23 @@ def feature_vector(feats: dict[str, float]) -> np.ndarray:
                     dtype=np.float32)
 
 
-def check_supported(model_path: str | Path | None = None) -> None:
-    """Raise where the reference would load a trained sklearn bundle: an
-    explicit `model_path`, `BOA_CONTRAST_MODEL`, or
-    ``~/.boa_tpu/contrast_model.pkl``."""
-    path = model_path or os.environ.get("BOA_CONTRAST_MODEL")
+def _model_path(explicit: str | Path | None = None) -> Path | None:
+    """The bundle the reference would load: an explicit path or
+    `BOA_CONTRAST_MODEL` that exists, else the home default if it exists."""
+    p = explicit or os.environ.get("BOA_CONTRAST_MODEL")
+    if p and Path(p).exists():
+        return Path(p)
     default = Path.home() / ".boa_tpu" / "contrast_model.pkl"
-    if path or default.exists():
+    return default if default.exists() else None
+
+
+def check_supported(model_path: str | Path | None = None) -> None:
+    """Raise where the reference would load a trained sklearn bundle
+    (`_model_path`); otherwise the study scores the vendored folds."""
+    path = _model_path(model_path)
+    if path is not None:
         raise NotImplementedError(
-            f"the sklearn contrast bundle ({path or default}) is not ported yet "
+            f"the sklearn contrast bundle ({path}) is not ported yet "
             f"(ROADMAP M9 (vi)): unset BOA_CONTRAST_MODEL")
 
 
@@ -197,8 +208,8 @@ def predict(ct_path: Path | str | nifti.NiftiImage,
             segmentation_folder: Path | str,
             model_path: str | Path | None = None,
             one_mask_per_file: bool = False) -> dict[str, Any]:
-    """`boa_contrast.predict`-compatible entry; `model_path` (a trained
-    sklearn bundle) raises."""
+    """`boa_contrast.predict`-compatible entry; an existing `model_path` (a
+    trained sklearn bundle) raises."""
     check_supported(model_path)
     measurements = None
     meas_path = Path(segmentation_folder) / "total-measurements.json"

@@ -118,14 +118,37 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               with seconds, analyze_ct's stats, spans, peak memory, launches
               tiles x folds x (4, 1, 1), no K5 launch and no model loaded
               again. It says why the BCA PDF and the preview were not run
+10. dicom   - DICOM ingestion, from a series directory: (a) 8 (a)'s 96x96x64
+              CT as a JPEG-LS series (the port's `write_ct_series`) through
+              `analyze_ct` with 5's small `total_fast` (widths 32/64/128,
+              32^3 patch), `-m total` fast, contrast on, on the card and in
+              this process on the CPU:
+              image.nii.gz equal to the source voxels, total.nii.gz labels
+              agree > 0.99, the info sheets' DICOM rows equal, the "Study
+              ingest took" span in debug_information.txt, launches tiles x
+              (4, 1, 1) with the split plan's finishing passes;
+              (b) the host decoders (`boa_tpu_torch/native`, g++, their build
+              seconds) on one 512x512 slice of the bench CT as RLE, JPEG
+              Lossless SV1, JPEG-LS, JPEG 2000 and 12-bit JPEG Extended: the
+              median of 5 decodes in ms, bit-identical to the source for the
+              lossless syntaxes and to the plain Python decoder (one call;
+              JPEG 2000's on the central 128x128 crop); (c) the bench's
+              512x512x300 CT as an uncompressed series through `cli.run`
+              (`-m total --fast-total`, contrast on) on 8 (c)'s store: seconds,
+              the ingest span, analyze_ct's stats, spans, peak memory,
+              launches tiles x (4, 1, 1) with no K5, image.nii.gz equal to the
+              source (affine within 1e-6), total.nii.gz agreeing > 0.99 with
+              9 (c)'s (or with the command on the NIfTI file when the cli phase
+              did not run), and an estimate of a 300-slice JPEG-LS ingest
 
-The device phase also says whether pandas, matplotlib and cv2 import on the
-card machine. With --profile, the fused, study and total phases each add one
-more run under torch.profiler (device busy share, kernels by device time),
-and the measure phase one more run of (b) on the card. With --phases=a,b (of
-kernels, forward, fused, study, total, measure, bca, cli) only those phases run
-after the device phase, and the kernel summary line is left out. Each phase
-prints one JSON line (the total, measure, bca and cli phases one per part).
+The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
+import on the card machine. With --profile, the fused, study and total phases
+each add one more run under torch.profiler (device busy share, kernels by
+device time), and the measure phase one more run of (b) on the card. With
+--phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
+dicom) only those phases run after the device phase, and the kernel summary
+line is left out. Each phase prints one JSON line (the total, measure, bca,
+cli and dicom phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's) and, last,
@@ -148,7 +171,8 @@ import time
 
 import numpy as np
 
-ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli")
+ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
+              "dicom")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -227,7 +251,7 @@ def phase_device(torch, _build) -> dict:
     # the host packages the PDF, the workbook and the preview would need
     host_modules = {m: subprocess.run([sys.executable, "-c", f"import {m}"],
                                       capture_output=True).returncode == 0
-                    for m in ("pandas", "matplotlib", "cv2")}
+                    for m in ("pandas", "matplotlib", "cv2", "PIL", "sklearn")}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0), "host_modules": host_modules,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1628,6 +1652,12 @@ def _sheets_max_rel(got: dict, want: dict) -> float:
     return worst
 
 
+def _debug_spans(text: str) -> dict:
+    """The `_timed` spans ("<label> took <s> s") in a debug_information.txt."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\| ([^|\n]+) took ([0-9.]+) s$", text, re.M)}
+
+
 def _cli_env(**extra) -> dict:
     """This process's environment without the CLI's env mirrors, plus `extra`."""
 
@@ -1819,9 +1849,7 @@ def phase_cli(torch, rc, pc) -> dict:
         os.environ.update(env_before)
     out = files_of(root / "cli")
     stats = captured["result"][1]
-    # the stage spans analyze_ct logs (at INFO under the CLI) into the debug file
-    logged = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"\| ([^|\n]+) took ([0-9.]+) s$", out["debug"], re.M)}
+    logged = _debug_spans(out["debug"])   # analyze_ct's spans, at INFO under the CLI
     res["study"] = {
         "sec": dt, "stats": {k: v for k, v in stats.items()
                              if k.endswith("_time") or k in ("iv_contrast_phase",
@@ -1843,6 +1871,202 @@ def phase_cli(torch, rc, pc) -> dict:
                      "--bca-no-pdf is required",
           "preview": "not run: the preview renderer is not ported (ROADMAP M9 (i)); "
                      "--preview raises"})
+    return res
+
+
+def phase_dicom(torch, rc, pc) -> dict:
+    """DICOM ingestion, from a CT series directory to the study's files.
+    (a) bca (a)'s 96x96x64 CT written as a JPEG-LS series by the port's
+    `write_ct_series`, through `analyze_ct` with the small checks' models
+    (`-m total` fast: `total_fast` at widths 32/64/128, 32^3 patch; contrast
+    on) on the card and in this process on the CPU:
+    image.nii.gz equal to the source voxels, total.nii.gz labels agree
+    > 0.99, the info sheets' DICOM rows equal, the "Study ingest took" line
+    in the debug file, launches tiles x (4, 1, 1) with the split plan's
+    finishing passes; (b) one 512x512 slice of the bench CT as RLE, JPEG
+    Lossless SV1, JPEG-LS, JPEG 2000 and 12-bit JPEG Extended: the host
+    library's decode (median of 5, ms) bit-identical to the source for the
+    lossless syntaxes and to its plain version (one call; JPEG 2000's on a
+    128x128 crop), the library's build seconds; (c) the bench's 512x512x300
+    CT as an uncompressed series through `cli.run` (`-m total --fast-total`,
+    contrast on) on bca (c)'s store: seconds, the ingest span, analyze_ct's
+    stats, peak memory, launches tiles x (4, 1, 1) with no K5, image.nii.gz
+    equal to the source (affine within 1e-6), total.nii.gz agreeing > 0.99
+    with cli (c)'s (or with the same command on the NIfTI file when the cli
+    phase did not run), and the estimated ingest of a 300-slice JPEG-LS
+    series."""
+    import logging
+    from pathlib import Path
+
+    from boa_tpu_torch import cli, commands, native
+    from boa_tpu_torch.io import dicom, dicom_io, nifti
+    from boa_tpu_torch.io.xlsx import read_xlsx
+    from boa_tpu_torch.native.timing import time_decoders
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.weights.store import ModelStore
+
+    res = {}
+    t_phase = time.perf_counter()
+    native.build_all()   # the host decoders: g++ at first use
+    res["build"] = {k: native.build_info[k] for k in ("seconds", "cached", "dir")}
+
+    def launches() -> dict:
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset() -> None:
+        rc.reset_launches()
+        pc.reset_launches()
+
+    def dicom_names(folder: Path) -> set:
+        """The names of the info rows a series gives (extract_metadata's)."""
+        first = sorted(folder.iterdir())[0]
+        return {r["name"] for r in dicom_io.extract_metadata(
+            dicom.dcmread(first, stop_before_pixels=True))}
+
+    # --- (a) a JPEG-LS series through analyze_ct, card against CPU
+    t_part = time.perf_counter()
+    pkg_logger = logging.getLogger("boa_tpu_torch")
+    level = pkg_logger.level
+    pkg_logger.setLevel(logging.INFO)   # as the CLI sets it: the spans reach the debug file
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        patch = (32, 32, 32)
+        store = _store(tmp / "w", (32, 64, 128), patch,
+                       ["background"] + list(get_class_map("total").values()))
+        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        t0 = time.perf_counter()
+        dicom_io.write_ct_series(img, tmp / "series", transfer_syntax=dicom.JPEG_LS_LOSSLESS)
+        write_s = time.perf_counter() - t0
+        names = dicom_names(tmp / "series")
+        out, sec, spans = {}, {}, {}
+        try:
+            for device in ("cuda", "cpu"):
+                reset()
+                t0 = time.perf_counter()
+                commands.analyze_ct(tmp / "series", tmp / device, tmp / device, ["total"],
+                                    total_preview=False, fast_total=True, device=device,
+                                    store=store, spans=spans.setdefault(device, {}))
+                sec[device] = time.perf_counter() - t0
+                out[device] = {
+                    "launches": launches(),
+                    "image": nifti.load(tmp / device / "image.nii.gz"),
+                    "labels": nifti.load(tmp / device / "total.nii.gz").data,
+                    "info": read_xlsx(tmp / device / "output.xlsx")["info"],
+                    "debug": (tmp / device / "debug_information.txt").read_text()}
+        finally:
+            pkg_logger.setLevel(level)
+        gpu, cpu = out["cuda"], out["cpu"]
+        tiles = spans["cuda"]["tiles"]
+        want = _want_launches(tiles, _rows_finish(torch, pc, tiles, patch, 32))
+        rows = {d: [r for r in o["info"] if r and r[0] in names] for d, o in out.items()}
+        res["series"] = {
+            "transfer_syntax": dicom.JPEG_LS_LOSSLESS, "slices": img.shape[2],
+            "write_s": write_s, "sec": sec,
+            "ingest_s": {d: _debug_spans(o["debug"])["Study ingest"] for d, o in out.items()},
+            "agree": float((gpu["labels"] == cpu["labels"]).mean()),
+            "labels_present": int(len(np.unique(gpu["labels"]))),
+            "image_equal": bool(np.array_equal(gpu["image"].data, img.data)
+                                and np.array_equal(cpu["image"].data, img.data)),
+            "affine_max_err": float(np.abs(gpu["image"].affine - img.affine).max()),
+            "dicom_rows": rows["cuda"], "launches": gpu["launches"], "expected": want,
+            "contrast_rows": [r for r in gpu["info"] if r[0].startswith("PredictedContrast")],
+            "part_s": time.perf_counter() - t_part}
+    emit({"phase": "dicom", "part": "series", **res["series"]})
+    assert res["series"]["image_equal"] and res["series"]["affine_max_err"] <= 1e-6
+    assert res["series"]["agree"] > 0.99, res["series"]["agree"]
+    assert rows["cuda"] == rows["cpu"] and len(rows["cuda"]) == len(names), rows
+    assert all("Study ingest took" in o["debug"] for o in out.values())
+    assert res["series"]["contrast_rows"], gpu["info"]
+    assert gpu["launches"] == want, (gpu["launches"], want)
+
+    # --- (b) the host decoders against their plain versions, one 512x512 slice
+    study = _bca_study()   # written once: bca (c)'s store and CT, shared with (c)
+    root, img = study["root"], study["img"]
+    t_part = time.perf_counter()
+    sl = np.ascontiguousarray(img.data[:, :, STUDY_SHAPE[2] // 2].T)   # (rows, cols) int16
+    decoders = time_decoders(sl)["codecs"]
+    res["decoders"] = {"slice": f"z = {STUDY_SHAPE[2] // 2} of the bench CT, 512x512 int16",
+                       "build": res["build"], "codecs": decoders,
+                       "part_s": time.perf_counter() - t_part}
+    emit({"phase": "dicom", "part": "decoders", **res["decoders"]})
+
+    # --- (c) the full-width study from an uncompressed series through cli.run
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    dicom_io.write_ct_series(img, root / "series")
+    series_write_s = time.perf_counter() - t0
+    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))["total"]
+    captured, spans, loads = {}, {}, []
+    analyze_ct, load = commands.analyze_ct, ModelStore.load
+
+    def analyze_ct_spans(**kw):
+        captured["result"] = analyze_ct(spans=spans, **kw)
+        return captured["result"]
+
+    def load_counted(self, *a, **kw):
+        loads.append(a[0] if a else kw.get("task_id"))
+        return load(self, *a, **kw)
+
+    args = ["-m", "total", "--fast-total"]
+    env_before = dict(os.environ)
+    os.environ.update(BOA_WEIGHTS_PATH=str(root), BOA_TPU_CONFIG_DIR=str(root / "cfg"))
+    try:
+        ref_dir = root / "cli"
+        if not (ref_dir / "total.nii.gz").exists():   # no cli phase: its file, as reference
+            ref_dir = root / "dicom_ref"
+            t0 = time.perf_counter()
+            cli.run(["-i", str(root / "ct.nii.gz"), "-o", str(ref_dir), *args])
+            res["nifti_reference_s"] = time.perf_counter() - t0
+        commands.analyze_ct, ModelStore.load = analyze_ct_spans, load_counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        cli.run(["-i", str(root / "series"), "-o", str(root / "dicom"), *args])
+        dt = time.perf_counter() - t0
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        commands.analyze_ct, ModelStore.load = analyze_ct, load
+        os.environ.clear()
+        os.environ.update(env_before)
+    t0 = time.perf_counter()
+    dicom_io.read_series(root / "series")   # the ingest's read alone, without the save
+    read_series_s = time.perf_counter() - t0
+    stats = captured["result"][1]
+    logged = _debug_spans((root / "dicom" / "debug_information.txt").read_text())
+    image = nifti.load(root / "dicom" / "image.nii.gz")
+    labels = nifti.load(root / "dicom" / "total.nii.gz").data
+    ref_labels = nifti.load(ref_dir / "total.nii.gz").data
+    info = read_xlsx(root / "dicom" / "output.xlsx")["info"]
+    jls_ms = decoders["jpeg_ls"]["library_ms"]
+    res["study"] = {
+        "sec": dt, "ingest_s": logged["Study ingest"], "read_series_s": read_series_s,
+        "series_write_s": series_write_s,
+        "stats": {k: v for k, v in stats.items()
+                  if k.endswith("_time") or k in ("iv_contrast_phase", "git_contrast")},
+        "logged_spans": logged, "spans": spans, "peak_mem_gib": peak,
+        "launches": got, "expected_tiles": expect, "checkpoint_loads": loads,
+        "image_equal": bool(np.array_equal(image.data, img.data)),
+        "affine_max_err": float(np.abs(image.affine - img.affine).max()),
+        "agree_with": str(ref_dir.relative_to(root)) + "/total.nii.gz",
+        "agree": float((labels == ref_labels).mean()),
+        "labels_present": int(len(np.unique(labels))),
+        "dicom_rows": [r for r in info if r and r[0] in dicom_names(root / "series")],
+        "jpeg_ls_300_slice_ingest_estimate_s": {
+            "library": 300 * jls_ms / 1e3,
+            "plain": 300 * decoders["jpeg_ls"]["plain_ms"] / 1e3,
+            "note": "an estimate: 300 x (b)'s one-slice decode, not a measured ingest"},
+        "part_s": time.perf_counter() - t_part}
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "dicom", "part": "study", **res["study"], "phase_s": res["phase_s"],
+          **({"nifti_reference_s": res["nifti_reference_s"]}
+             if "nifti_reference_s" in res else {})})
+    assert res["study"]["image_equal"] and res["study"]["affine_max_err"] <= 1e-6
+    assert res["study"]["agree"] > 0.99, res["study"]["agree"]
+    assert spans["tiles"] == expect, (spans["tiles"], expect)
+    assert got == _want_launches(expect), got
+    assert any(r[0] == "PredictedContrastPhase" for r in info)
     return res
 
 
@@ -1935,6 +2159,8 @@ def main() -> int:
         bca = phase_bca(torch, rc, pc, timed="cli" not in phases)
     if "cli" in phases:
         cli = phase_cli(torch, rc, pc)
+    if "dicom" in phases:
+        phase_dicom(torch, rc, pc)
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli)})
     emit({"ok": True, "device": {"platform": "gpu",

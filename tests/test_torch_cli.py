@@ -145,6 +145,82 @@ def test_analyze_ct_matches_reference(tmp_path, caplog):
         sorted(p.name for p in (tmp_path / "ref").iterdir())
 
 
+def test_analyze_ct_from_jpeg_ls_series_matches_reference(tmp_path, monkeypatch, caplog):
+    """tests/test_dicom.py's DICOM-directory study as a JPEG-LS series,
+    through both packages' analyze_ct with tests/test_golden_regression.py's
+    fake predict, contrast on (BOA_CONTRAST_MODEL names a file that does not
+    exist, so the vendored folds score): image.nii.gz bit-identical to the
+    source, both packages' files byte-identical, the info sheet's rows
+    equal (the DICOM and contrast rows among them), and the ingest span in
+    the debug file."""
+    from boa_tpu_torch.io import dicom as td
+    from boa_tpu_torch.io import dicom_io as tio
+    from tests.test_golden_regression import _fake
+
+    caplog.set_level(logging.INFO)
+    monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "missing.pkl"))
+    rng = np.random.default_rng(12)
+    data = np.full((40, 40, 16), -1000, np.int16)
+    data[8:32, 8:32, :] = 40 + rng.integers(-20, 20, (24, 24, 16)).astype(np.int16)
+    affine = np.diag([-1.5, -1.5, 3.0, 1.0])
+    tio.write_ct_series(tn.NiftiImage(data=data, affine=affine), tmp_path / "dicoms",
+                        transfer_syntax=td.JPEG_LS_LOSSLESS, extra={"KVP": 120.0})
+    kw = dict(models=["total"], bca_pdf=False, total_preview=False, fast_total=True,
+              fake_predict=_fake)
+    got_path, got_stats = tcmd.analyze_ct(tmp_path / "dicoms", tmp_path / "got",
+                                          tmp_path / "got", device="cpu", **kw)
+    want_path, want_stats = janalyze(tmp_path / "dicoms", tmp_path / "ref", tmp_path / "ref",
+                                     **kw)
+    img = tn.load(tmp_path / "got" / "image.nii.gz")
+    np.testing.assert_array_equal(img.data, data)
+    np.testing.assert_allclose(img.affine, affine, atol=1e-6)
+    for name in ("image.nii.gz", "total.nii.gz"):
+        assert (tmp_path / "got" / name).read_bytes() == (tmp_path / "ref" / name).read_bytes()
+    got, want = jx.read_xlsx(got_path), jx.read_xlsx(want_path)
+    _same_sheets(got, want)
+    info = {r[0]: (r[1:] or [None])[0] for r in got["info"]}
+    assert info["Modality"] == "CT" and info["KVP"] == 120.0
+    assert [r for r in got["info"] if r[0] == "SeriesInstanceUID"] == \
+        [r for r in want["info"] if r[0] == "SeriesInstanceUID"]
+    assert {"PredictedContrastPhase", "PredictedContrastInGIT"} <= set(info)
+    names = [r[0] for r in got["info"]]
+    assert names[:3] == ["BOAVersion", "BOAGitHash", "StudyInstanceUID"]
+    assert got_stats["iv_contrast_phase"] == want_stats["iv_contrast_phase"]
+    debug = (tmp_path / "got" / "debug_information.txt").read_text()
+    assert "Study ingest took" in debug
+
+
+_LOADED = r"""
+import sys
+import numpy as np
+from boa_tpu_torch.io import dicom_codecs as tc
+img = np.arange(64 * 64, dtype=np.uint16).reshape(64, 64) % 4096
+assert (tc.decode_rle(tc.encode_rle(img), 64, 64, 2) == img).all()
+assert (tc.decode_jpeg_lossless(tc.encode_jpeg_lossless_sv1(img)) == img).all()
+assert (tc.decode_jpeg_ls(tc.encode_jpeg_ls(img)) == img).all()
+assert (tc.decode_jpeg2000(tc.encode_jpeg2000(img)) == img).all()
+assert tc.decode_jpeg_dct(tc.encode_jpeg_dct(img, precision=12)).shape == img.shape
+maps = [line.split()[-1] for line in open("/proc/self/maps") if line.rstrip().endswith(".so")]
+print("\n".join(sorted(set(maps))))
+print("MODULES", sorted(m for m in sys.modules if m.split(".")[0] == "boa_tpu"))
+"""
+
+
+def test_decoders_load_the_port_library_only(tmp_path):
+    """Decoding every syntax loads the four libraries from
+    build/boa_tpu_torch_native/, and no module or library of boa_tpu/."""
+    proc = subprocess.run([sys.executable, "-c", _LOADED], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120, env=_env(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    libs = proc.stdout.split("MODULES")[0].split()
+    ours = [p for p in libs if "/build/boa_tpu_torch_native/" in p]
+    assert sorted(Path(p).name for p in ours) == [
+        "libjpeg2000.so", "libjpegdct.so", "libjpegll.so", "libjpegls.so"]
+    assert all(Path(p).parent.parent == ROOT / "build" / "boa_tpu_torch_native" for p in ours)
+    assert not [p for p in libs if "/boa_tpu/" in p or "libboa_native" in p]
+    assert proc.stdout.rstrip().endswith("MODULES []")
+
+
 def _env(tmp_path, **extra):
     env = dict(os.environ)
     for var in ("DEVICE", "NVIDIA_ID", "BOA_TEST_ANATOMY", "BOA_PROFILE"):
@@ -234,27 +310,43 @@ def test_cli_anatomy_hook_cnr_golden(tmp_path):
     (["--preview", "--bca-no-pdf"], {}, r"M9 \(i\)"),
     (["-m", "total+bca"], {}, r"M9 \(i\)"),
     (["-m", "bca", "--bca-no-pdf"], {"BOA_CONTRAST_MODEL": "bundle.pkl"}, r"M9 \(vi\)"),
-    (["--bca-no-pdf", "--dicom"], {}, r"M9 \(ii\)"),
 ])
 def test_unported_inputs_raise_before_any_model(tmp_path, monkeypatch, flags, env, match):
-    """--radiomics, --preview, bca without --bca-no-pdf, a trained contrast
-    bundle and a DICOM directory raise NotImplementedError naming their
+    """--radiomics, --preview, bca without --bca-no-pdf and a trained
+    contrast bundle (the file exists) raise NotImplementedError naming their
     ROADMAP item before any model runs or any file is written."""
     def no_models(*a, **kw):
         raise AssertionError("a model ran")
 
     monkeypatch.setattr(tcmd, "compute_all_models", no_models)
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    study = tmp_path / "dicoms" if "--dicom" in flags else tmp_path / "ct.nii.gz"
-    if "--dicom" in flags:
-        study.mkdir()
-        flags = [f for f in flags if f != "--dicom"]
-    else:
-        tn.save(tn.NiftiImage(data=np.zeros((8, 8, 8), np.int16), affine=np.eye(4)), study)
+        (tmp_path / v).write_bytes(b"")
+        monkeypatch.setenv(k, str(tmp_path / v))
+    study = tmp_path / "ct.nii.gz"
+    tn.save(tn.NiftiImage(data=np.zeros((8, 8, 8), np.int16), affine=np.eye(4)), study)
     with pytest.raises(NotImplementedError, match=match):
         tcli.run(["-i", str(study), "-o", str(tmp_path / "out"), "--device", "cpu", *flags])
     assert not (tmp_path / "out").exists()
+
+
+def test_empty_dicom_directory_raises_as_reference(tmp_path, monkeypatch):
+    """A directory without a series raises the reference's ValueError from
+    the ingest stage, inside the debug-file block: the debug file records
+    the abort, and no model runs."""
+    def no_models(*a, **kw):
+        raise AssertionError("a model ran")
+
+    monkeypatch.setattr(tcmd, "compute_all_models", no_models)
+    (tmp_path / "dicoms").mkdir()
+    with pytest.raises(ValueError, match="No DICOM series found") as got:
+        tcli.run(["-i", str(tmp_path / "dicoms"), "-o", str(tmp_path / "out"), "--device",
+                  "cpu", "--bca-no-pdf"])
+    with pytest.raises(ValueError) as want:
+        janalyze(tmp_path / "dicoms", tmp_path / "ref", tmp_path / "ref", ["total"],
+                 bca_pdf=False, total_preview=False)
+    assert str(got.value) == str(want.value)
+    debug = (tmp_path / "out" / "debug_information.txt").read_text()
+    assert debug.startswith("Platform: ") and "analyze_ct aborted with ValueError" in debug
 
 
 def _captured(module, monkeypatch, argv):

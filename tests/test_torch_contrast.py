@@ -239,17 +239,34 @@ def test_predict_without_measurements_matches_reference(tmp_path):
 
 
 def test_contrast_bundle_raises(tmp_path, monkeypatch):
-    """A trained sklearn bundle is not ported: BOA_CONTRAST_MODEL, an
-    explicit path or the home default raise, naming ROADMAP."""
+    """A trained sklearn bundle is not ported: an existing file named by
+    BOA_CONTRAST_MODEL or an explicit path, or the home default, raises,
+    naming ROADMAP."""
     (tmp_path / "total-measurements.json").write_text(json.dumps(_measurements(1)))
+    (tmp_path / "bundle.pkl").write_bytes(b"")
+    monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "bundle.pkl"))
     with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
         tcon.predict(None, tmp_path)
     monkeypatch.delenv("BOA_CONTRAST_MODEL")
     with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
         tcon.predict(None, tmp_path, model_path=tmp_path / "bundle.pkl")
-    monkeypatch.setenv("HOME", str(tmp_path))
     (tmp_path / ".boa_tpu").mkdir()
     (tmp_path / ".boa_tpu" / "contrast_model.pkl").write_bytes(b"")
     with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
         tcon.predict(None, tmp_path)
+
+
+def test_missing_bundle_scores_vendored_folds(tmp_path, monkeypatch):
+    """A BOA_CONTRAST_MODEL or explicit path that does not exist is ignored,
+    as the reference ignores it: the vendored folds score the study, with
+    the reference's result."""
+    (tmp_path / "total-measurements.json").write_text(json.dumps(_measurements(2)))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "missing.pkl"))
+    tcon.check_supported()
+    got = tcon.predict(None, tmp_path)
+    _same_result(got, jcon.predict(None, tmp_path))
+    assert got["git_classifier_is_standin"]
+    _same_result(tcon.predict(None, tmp_path, model_path=tmp_path / "gone.pkl"),
+                 jcon.predict(None, tmp_path, model_path=tmp_path / "gone.pkl"))
