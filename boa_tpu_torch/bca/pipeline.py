@@ -7,8 +7,8 @@ and `body_regions` (task 542), each a 5-fold ensemble (fold 0 with
 followed by its host postprocess; the tissue subclassification on the
 device; the examined body part; the per-vertebra slice windows from `total`;
 the report builder; `body_parts.nii.gz`, `body_regions.nii.gz`,
-`tissues.nii.gz`, `vertebrae.json` and `bca-measurements.json`. The PDF
-report waits for ROADMAP M9 (i): `save_pdf=True` raises before any work.
+`tissues.nii.gz`, `vertebrae.json`, `bca-measurements.json` and, with
+`save_pdf` (the default), `report.pdf`.
 """
 
 from __future__ import annotations
@@ -38,11 +38,6 @@ logger = logging.getLogger(__name__)
 
 _POSTPROCESS = {"body_parts": bca_pp.postprocess_part_segmentation,
                 "body_regions": bca_pp.postprocess_region_segmentation}
-
-
-def _no_pdf() -> NotImplementedError:
-    return NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i)): "
-                               "pass save_pdf=False")
 
 
 def _postprocess(task_name: str, res, spans: dict | None) -> nifti.NiftiImage:
@@ -159,14 +154,13 @@ def run_pipeline(
     cavity, 4 brain); `images_out` the three label images. With a `worker`
     (utils/stages.HostWorker) the body_parts postprocess runs behind the
     body_regions prediction and the saves behind the report; every file is
-    written when this returns. `store` defaults to `ModelStore()`
+    written when this returns; the PDF renders there too, from `prepare`'s
+    output alone. `store` defaults to `ModelStore()`
     (`$BOA_WEIGHTS_PATH`), `device` to the card. `spans`, when
     given, receives the seconds of `bca_inference`'s stages and of
     `tissues` (`tissues.*` its parts), `load_total`, `body_parts_wait`,
-    `builder` (`builder.*`), `vertebrae`, `prepare`, `save` and
-    `save_wait`."""
-    if save_pdf:
-        raise _no_pdf()
+    `builder` (`builder.*`), `vertebrae`, `prepare`, `report_pdf` (the
+    render and its write), `save` and `save_wait`."""
     device = resolve_device(device)
     store = store or ModelStore()
     output_dir = Path(output_dir)
@@ -241,6 +235,13 @@ def run_pipeline(
     prepared = builder.prepare(vertebrae_info, total=total_seg,
                                total_measurements=total_measurements)
     sp.mark("prepare")
+    if save_pdf:
+        if worker is not None:
+            save_futures.append(worker.submit("bca-report-pdf", _write_pdf, builder, prepared,
+                                              output_dir / "report.pdf", spans))
+        else:
+            _write_pdf(builder, prepared, output_dir / "report.pdf", spans)
+        sp.restart()
     json_data = builder.create_json(**prepared)
     if vertebrae_info:
         (output_dir / "vertebrae.json").write_text(json.dumps(vertebrae_info, indent=2))
@@ -254,3 +255,11 @@ def run_pipeline(
         images_out["body_regions"] = body_regions_img
         images_out["tissues"] = tis_img
     return json_data
+
+
+def _write_pdf(builder: Builder, prepared: dict[str, Any], path: Path,
+               spans: dict | None) -> None:
+    t0 = perf_counter()
+    path.write_bytes(builder.create_pdf(**prepared))
+    if spans is not None:   # a key only this stage writes
+        spans["report_pdf"] = spans.get("report_pdf", 0) + perf_counter() - t0

@@ -1,13 +1,13 @@
 """BCA report builder: per-slice tissue volumes, aggregations, findings and
-the JSON report.
+the JSON and PDF reports.
 
 Counterpart of `boa_tpu/bca/report.py` (body_composition_analysis
-`report/builder.py`) without the PDF, which waits for ROADMAP M9 (i):
-`AggregatableBodyPart.from_body_regions` (abdomen >= 200 mm of abdominal
-cavity, neck >= 100 mm above the mediastinum, thorax >= 200 mm overlapping
-the abdomen), the aggregation groups, the per-group describe statistics with
+`report/builder.py`): `AggregatableBodyPart.from_body_regions` (abdomen
+>= 200 mm of abdominal cavity, neck >= 100 mm above the mediastinum, thorax
+>= 200 mm overlapping the abdomen), the aggregation groups, the per-group describe statistics with
 each tissue's mean HU, the secondary findings with the breast implants,
-`prepare` and `create_json` (the reference's schema, key for key).
+`prepare`, `create_json` (the reference's schema, key for key) and
+`create_pdf` (`bca/plots.py`, from `prepare`'s output alone).
 
 Axes are (x, y, z) RAS, z the slice index as in the reference.
 
@@ -35,10 +35,12 @@ import numpy as np
 import torch
 
 from boa_tpu_torch.bca.definitions import ADIPOSE_TISSUES, BodyPart, BodyRegion, Tissue
+from boa_tpu_torch.bca.plots import render_report_pdf
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.ops import connected_components as cc
 from boa_tpu_torch.ops import packing
 from boa_tpu_torch.utils.timing import Spans
+from boa_tpu_torch.version import __version__
 
 logger = logging.getLogger(__name__)
 
@@ -444,7 +446,8 @@ class Builder:
         }
 
     def create_pdf(self, **prepared) -> bytes:
-        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i))")
+        """The PDF report from `prepare`'s output alone (`bca/plots.py`)."""
+        return render_report_pdf(self, prepared, version=__version__)
 
 
 def create_vertebrae_info(total_seg: np.ndarray,

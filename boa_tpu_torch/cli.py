@@ -8,8 +8,7 @@ the package's loggers at INFO, shown with --verbose) and the
 `BOA_TEST_ANATOMY` fake-inference hook. The input (`-i`) is a DICOM series
 directory, the default `/dicoms`, or a NIfTI file. The device is the card
 unless `--device cpu`; without CUDA the run stops. What is not ported raises
-before any model runs: `--radiomics` (ROADMAP M9 (iii)), `--preview` and
-`bca` without `--bca-no-pdf` (M9 (i)).
+before any model runs: `--radiomics` (ROADMAP M9 (iii)).
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--verbose", default=None, action="store_true",
                         help="Print additional information for debugging purposes")
     parser.add_argument("--preview", default=False, action="store_true",
-                        help="Generate a png preview of segmentation (not ported yet)")
+                        help="Generate a png preview of segmentation")
     parser.add_argument("--force-recompute", default=False, action="store_true",
                         help=("Generate all segmentations from scratch, even "
                               "if they already exist"))
@@ -74,8 +73,7 @@ def get_parser() -> argparse.ArgumentParser:
                         help="Limit BCA report measurements to the selected "
                              "body region.")
     parser.add_argument("--bca-no-pdf", default=False, action="store_true",
-                        help="Skip BCA PDF report generation (required: the "
-                             "PDF is not ported yet)")
+                        help="Skip BCA PDF report generation")
     parser.add_argument("--skip-contrast-information", default=False,
                         action="store_true",
                         help="Skip IV/GIT contrast phase prediction")
@@ -131,11 +129,6 @@ def run(argv: list[str] | None = None) -> None:
 
     if args.radiomics:
         raise NotImplementedError("--radiomics is not ported yet (ROADMAP M9 (iii))")
-    if args.preview:
-        raise NotImplementedError("--preview is not ported yet (ROADMAP M9 (i))")
-    if "bca" in models_to_compute and not bca_no_pdf:
-        raise NotImplementedError("the BCA PDF report is not ported yet "
-                                  "(ROADMAP M9 (i)): pass --bca-no-pdf or set BCA_NO_PDF=1")
 
     # fake-inference hook (the reference's `test=N` mode): the anatomy
     # phantom's labels replace every model forward

@@ -11,8 +11,7 @@ to `image.nii.gz` with its metadata rows for the `info` sheet. Where the
 port differs: the header names torch and the device (with the card's
 name), `BOA_PROFILE` records a `torch.profiler` trace, and `device` and
 `store` reach `compute_all_models`. What is not ported raises before any
-work: the preview and the BCA PDF (M9 (i)) and a trained sklearn contrast
-bundle (M9 (vi)).
+work: a trained sklearn contrast bundle (M9 (vi)).
 """
 
 from __future__ import annotations
@@ -244,9 +243,9 @@ def analyze_ct(
     caller reaps it; without one every file is on disk when this returns.
     `spans`, when given, receives `compute_all_models`' stage seconds.
     `input_folder` is a NIfTI file or a DICOM series directory.
-    `total_preview` and `bca_pdf` (the reference's defaults) are not ported
-    and raise, as does a trained contrast bundle, before any work; so does
-    an input that does not exist."""
+    `total_preview` writes `preview_total.png` and `bca_pdf` `report.pdf`
+    (the reference's defaults). A trained contrast bundle raises before any
+    work, as does an input that does not exist."""
     input_folder = Path(input_folder)
     processed_output_folder = Path(processed_output_folder)
     excel_output_folder = Path(excel_output_folder)
@@ -254,11 +253,6 @@ def analyze_ct(
     device = resolve_device(device)
     if not input_folder.exists():
         raise FileNotFoundError(f"input {input_folder} does not exist")
-    if total_preview:
-        raise NotImplementedError("the preview is not ported yet (ROADMAP M9 (i))")
-    if bca_pdf and "bca" in models:
-        raise NotImplementedError("the BCA PDF report is not ported yet "
-                                  "(ROADMAP M9 (i)): pass bca_pdf=False")
     if compute_contrast_information and "total" in models:
         contrast.check_supported()
     processed_output_folder.mkdir(parents=True, exist_ok=True)
@@ -360,7 +354,7 @@ def analyze_ct(
                                   slices_no_limbs)
 
         if own_worker:
-            worker.close()  # every deferred save is on disk
+            worker.close()  # every deferred save and render is on disk
         stats["total_time"] = time() - start_total
         logger.info("Complete CT analysis took %.5f s", stats["total_time"])
         return excel_path, stats

@@ -10,8 +10,11 @@ labels go to `{output name}.nii.gz` (padded back to the full grid),
 `total`'s statistics to `total-statistics.json`, and the measurements to
 `total-measurements.json` and `ct_pfav.nii.gz`. The BCA models
 (`BASE_MODELS`): `bca` runs `bca/pipeline.py:run_pipeline` with `total`'s
-labels of this run, `body_parts` and `body_regions` alone run
-`bca_inference`. The preview and the BCA PDF wait for ROADMAP M9 (i) and raise.
+labels of this run (and writes `report.pdf` unless `save_pdf=False`),
+`body_parts` and `body_regions` alone run `bca_inference`. With
+`preview`, `total`'s labels on the card give `preview_total.png`
+(`compute/preview.py`); a failed preview is logged as a warning and the
+study goes on, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Iterable
 import numpy as np
 
 from boa_tpu_torch.bca.pipeline import bca_inference, run_pipeline
+from boa_tpu_torch.compute.preview import generate_preview
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.inference.pipeline import predict_image
 from boa_tpu_torch.io import nifti
@@ -82,28 +86,26 @@ def compute_all_models(
     """Returns the study's voxel and slice counts and writes its files.
 
     `store` defaults to `ModelStore()` (`$BOA_WEIGHTS_PATH`).
-    `totalsegmentator_params` may hold `fast` (for `total`) and
+    `totalsegmentator_params` may hold `fast` (for `total`), `preview` and
     `license_number` (unused). `fast_bca` runs the BCA models on fold 0
-    only; `bca_params` go to `run_pipeline` and must hold `save_pdf=False`
-    while the PDF is not ported. `force_split_threshold` only logs: the
+    only; `bca_params` go to `run_pipeline` (`save_pdf`, the default, writes
+    `report.pdf`). `force_split_threshold` only logs: the
     study is never split in z. `recompute=False` skips a task whose file
     exists, and the measurements when their file exists. `worker`
     (utils/stages.HostWorker) runs the file saves behind the next device
-    stage; every file is written before this returns. `images_out` collects
+    stage, and the renders; every file is written before this returns
+    (a preview render that failed there is logged). `images_out` collects
     the label images by task. `device` defaults to the card. `spans`, when
     given, receives the seconds of `load`, `body_crop`, every stage of
     `predict_image` (`predict_{tid}`, `statistics`, ...), the measurement
-    engine's, `run_pipeline`'s, `save` (the files written on this thread,
-    or handed to the worker) and `save_wait` (for the worker's saves at the
-    end)."""
+    engine's, `run_pipeline`'s, `preview_fronts` and `preview_render`
+    (`generate_preview`), `save` (the files written on this thread, or
+    handed to the worker) and `save_wait` (for the worker's saves and
+    renders at the end)."""
     models_to_compute = list(models_to_compute)
     bca_params = dict(bca_params or {})
-    if "bca" in models_to_compute and bca_params.get("save_pdf", True):
-        raise NotImplementedError("the BCA PDF report is not ported yet (ROADMAP M9 (i)): "
-                                  "pass bca_params={'save_pdf': False}")
     totalsegmentator_params = dict(totalsegmentator_params or {})
-    if totalsegmentator_params.pop("preview", False):
-        raise NotImplementedError("the preview is not ported yet (ROADMAP M9 (i))")
+    with_preview = totalsegmentator_params.pop("preview", False)
     fast_total = totalsegmentator_params.pop("fast", False)
     totalsegmentator_params.pop("license_number", None)
     if totalsegmentator_params:
@@ -180,6 +182,16 @@ def compute_all_models(
             with (segmentation_folder / f"{chosen_task}-statistics.json").open("w") as f:
                 json.dump(res.stats, f, indent=2, default=np_json_default)
         sp.mark("save")
+        if with_preview and chosen_task == "total":
+            try:
+                fut = generate_preview(ct_img, res.seg, res.label_map,
+                                       segmentation_folder / "preview_total.png",
+                                       worker=worker, device=device, spans=spans)
+                if fut is not None:
+                    save_futures.append(fut)
+            except Exception:
+                logger.warning("Preview generation failed", exc_info=True)
+            sp.restart()
 
     measurement_file = segmentation_folder / "total-measurements.json"
     if measurement_models and (recompute or not measurement_file.is_file()):

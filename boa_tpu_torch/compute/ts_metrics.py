@@ -4,8 +4,9 @@ Counterpart of `boa_tpu/compute/ts_metrics.py` (body_organ_analysis
 `compute/ts_metrics.py:32-171`): reads `total-measurements.json`, measures
 the body's major and minor axes on the middle L3 slice, and gives the info
 rows and the regions-statistics and cnr-adjusted tables of the workbook,
-as (columns, rows) tables in place of pandas frames. The axes' plot
-(`store_axes=True`) needs a renderer and raises.
+as (columns, rows) tables in place of pandas frames. `store_axes=True`
+draws the axes over the slice into `major_minor_axis.png` with the port's
+own rasterizer (`render/`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from boa_tpu_torch.compute.geometry import find_axes
 from boa_tpu_torch.io import nifti
 from boa_tpu_torch.io.xlsx import Table, records_table
 from boa_tpu_torch.ops.cropping import pad_back
+from boa_tpu_torch.render import raster
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.utils.misc import (ADDITIONAL_MODELS_OUTPUT_NAME, convert_name,
                                       create_mask)
@@ -38,16 +40,34 @@ _CNR_INFO_ROWS = (
 _CNR_ADJUSTED_ROWS = ("aorta", "pulmonary_artery", "autochthon",
                       "autochthon_left", "autochthon_right")
 
-_NO_PLOT = ("the major/minor axis plot needs a renderer, which is not ported "
-            "yet (ROADMAP M9 (i))")
+# the reference's plot: `imshow` of the slice in the axes of a default
+# 6.4 x 4.8 in figure at 200 dpi (about 740 pixels on the longer side),
+# lines 2.5 pt wide
+_PLOT_PX = 740
+_LINE_PX = 2.5 * 200 / 72
+
+
+def _plot_axes_png(middle_slice: np.ndarray, major, minor, path: Path) -> None:
+    """The slice in gray (rows down, as `imshow` shows it) scaled to about
+    740 pixels, the major axis in green and the minor in blue."""
+    rows, cols = middle_slice.shape
+    scale = _PLOT_PX / max(rows, cols)
+    canvas = raster.Canvas(max(1, round(cols * scale)), max(1, round(rows * scale)))
+    canvas.blit(raster.gray(middle_slice), (0, 0, canvas.width, canvas.height))
+    sx, sy = canvas.width / cols, canvas.height / rows
+    for (a, b), color in ((major, (0.0, 0.5, 0.0)), (minor, (0.0, 0.0, 1.0))):
+        # plot coordinates (a[0], a[1]) are (column, row); pixel centres
+        # sit at whole data coordinates
+        canvas.line(((a[0] + 0.5) * sx, (a[1] + 0.5) * sy),
+                    ((b[0] + 0.5) * sx, (b[1] + 0.5) * sy), color, _LINE_PX)
+    canvas.save_png(path)
 
 
 def major_minor_axis(l3_mask: np.ndarray, body_mask: np.ndarray, img_spacing,
                      plot_axes: Path | None = None
                      ) -> tuple[float | None, float | None]:
-    """Axes of the middle L3 axial slice, in mm; masks in (x, y, z) order."""
-    if plot_axes is not None:
-        raise NotImplementedError(_NO_PLOT)
+    """Axes of the middle L3 axial slice, in mm; masks in (x, y, z) order.
+    With `plot_axes` (a folder), also `major_minor_axis.png` there."""
     if np.sum(l3_mask) == 0 or np.sum(body_mask) == 0:
         return None, None
     slices = np.where(l3_mask.any(axis=(0, 1)))[0]
@@ -58,6 +78,9 @@ def major_minor_axis(l3_mask: np.ndarray, body_mask: np.ndarray, img_spacing,
     if any(p is None for p in endpoints):
         return None, None
     major_a, major_b, minor_a, minor_b = endpoints
+    if plot_axes is not None:
+        _plot_axes_png(middle_slice, (major_a, major_b), (minor_a, minor_b),
+                      Path(plot_axes) / "major_minor_axis.png")
     avg_spacing = float(np.mean(img_spacing))
     return (float(np.hypot(*(major_a - major_b))) * avg_spacing,
             float(np.hypot(*(minor_a - minor_b))) * avg_spacing)
@@ -145,8 +168,6 @@ def compute_segmentator_metrics(
 ) -> tuple[list[dict[str, Any]], Table, Table]:
     """(info rows, regions-statistics table, cnr-adjusted table)."""
     segmentation_folder = Path(segmentation_folder)
-    if store_axes:   # before any work
-        raise NotImplementedError(_NO_PLOT)
     with (segmentation_folder / "total-measurements.json").open() as of:
         measurements = json.load(of)
 

@@ -1,9 +1,9 @@
 """Background host-stage worker for the study orchestrator.
 
 Counterpart of `boa_tpu/utils/stages.py`. ONE background thread runs
-pure-host stages (gzip saves) while the calling thread keeps launching
-device work, which mostly waits on the card with the interpreter lock
-released. Without a worker (`worker=None` at the call sites) the stages run
+pure-host stages (gzip saves, the renders) while the calling thread keeps
+launching device work, which mostly waits on the card with the interpreter
+lock released. Without a worker (`worker=None` at the call sites) the stages run
 inline.
 
 Rule kept by convention (not by the class): never submit work that
@@ -26,7 +26,9 @@ class HostWorker:
 
     - ``submit(name, fn, *args)`` returns a Future; stages run FIFO.
     - ``barrier()`` waits for everything submitted so far and re-raises
-      the first stage exception.
+      the first stage exception, except from a stage submitted with
+      ``suppress=True`` (the preview render): its failure is logged as a
+      warning and its Future holds None.
     - ``close()`` (also the context manager's exit) is a barrier, then
       stops the thread.
     """
@@ -36,14 +38,21 @@ class HostWorker:
         self._pending: list[tuple[str, Future]] = []
 
     @staticmethod
-    def _run(name: str, fn: Callable[..., Any], args: tuple, kwargs: dict) -> Any:
+    def _run(name: str, suppress: bool, fn: Callable[..., Any], args: tuple,
+             kwargs: dict) -> Any:
         t0 = perf_counter()
         try:
             return fn(*args, **kwargs)
+        except Exception:
+            if not suppress:
+                raise
+            logger.warning("Deferred stage %s failed", name, exc_info=True)
+            return None
         finally:
             logger.info("Stage %s: DONE in %0.5fs (overlapped)", name, perf_counter() - t0)
 
-    def submit(self, name: str, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Future:
+    def submit(self, name: str, fn: Callable[..., Any], *args: Any, suppress: bool = False,
+               **kwargs: Any) -> Future:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="boa-host-stage")
@@ -51,7 +60,7 @@ class HostWorker:
         # must not retain every stage's result
         self._pending = [(n, f) for n, f in self._pending
                          if not f.done() or f.exception() is not None]
-        fut = self._pool.submit(self._run, name, fn, args, kwargs)
+        fut = self._pool.submit(self._run, name, suppress, fn, args, kwargs)
         self._pending.append((name, fut))
         return fut
 

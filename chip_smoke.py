@@ -117,7 +117,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               BCA folds, contrast on): one timed run after 8 (c)'s warm-up
               with seconds, analyze_ct's stats, spans, peak memory, launches
               tiles x folds x (4, 1, 1), no K5 launch and no model loaded
-              again. It says why the BCA PDF and the preview were not run
+              again
 10. dicom   - DICOM ingestion, from a series directory: (a) 8 (a)'s 96x96x64
               CT as a JPEG-LS series (the port's `write_ct_series`) through
               `analyze_ct` with 5's small `total_fast` (widths 32/64/128,
@@ -140,15 +140,33 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               source (affine within 1e-6), total.nii.gz agreeing > 0.99 with
               9 (c)'s (or with the command on the NIfTI file when the cli phase
               did not run), and an estimate of a 300-slice JPEG-LS ingest
+11. render  - the renderers (the BCA PDF, the preview and their writers):
+              (a) the preview's front pass (`compute/preview.py`
+              `_group_fronts_device`) on the anatomy phantom's `total` labels
+              at 512x512x300 on the card, CUDA-event ms (median of 5 after a
+              warm-up), against its plain host version timed once: fronts,
+              label indices and label lists equal to the bit, the montages
+              from both byte-identical PNGs of 1760 x 660, the montage's
+              seconds; (b) `analyze_ct` through the anatomy hook at
+              512x512x300 with `total_preview=True, bca_pdf=True` on the card:
+              report.pdf has 3 pages + one per aggregation window,
+              preview_total.png more than 50 pixels of saturation > 0.15 in
+              each of its five panels, the spans of the front pass
+              (`preview_fronts`), the deferred montage (`preview_render`) and
+              the PDF (`report_pdf`); (c) `cli.run` on 8 (c)'s file and stores,
+              `-m total+bca --fast-total --preview` with the PDF on: seconds,
+              analyze_ct's stats, spans, peak memory, launches tiles x folds x
+              (4, 1, 1) with no K5 and no model loaded again, both files
+              written
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom) only those phases run after the device phase, and the kernel summary
-line is left out. Each phase prints one JSON line (the total, measure, bca,
-cli and dicom phases one per part).
+dicom, render) only those phases run after the device phase, and the kernel
+summary line is left out. Each phase prints one JSON line (the total,
+measure, bca, cli, dicom and render phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's) and, last,
@@ -172,7 +190,7 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom")
+              "dicom", "render")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -1669,6 +1687,66 @@ def _cli_env(**extra) -> dict:
     return env
 
 
+def _cli_study(torch, rc, pc, out_name: str, flags: list) -> dict:
+    """`cli.run` in this process on bca (c)'s 512x512x300 file and stores,
+    `-m total+bca --fast-total` (five BCA folds, contrast on) plus `flags`,
+    into `<root>/<out_name>`, after bca (c)'s warm-up (run here when bca (c)
+    has not run): seconds, analyze_ct's stats and its spans logged in the
+    debug file, `compute_all_models`' spans, peak memory, the launches with
+    the counts set to 0 just before the run, and the checkpoint loads."""
+    from boa_tpu_torch import cli, commands
+    from boa_tpu_torch.compute.inference import compute_all_models
+    from boa_tpu_torch.weights.store import ModelStore
+
+    study = _bca_study()
+    root, img = study["root"], study["img"]
+    if not study["warm"]:   # bca (c) did not run: warm up as it does
+        compute_all_models(root / "ct.nii.gz", root / "warm", ["total", "bca"],
+                           store=study["store"], totalsegmentator_params={"fast": True},
+                           bca_params={"save_pdf": False})
+        study["warm"] = True
+    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))
+    captured, spans, loads = {}, {}, []
+    analyze_ct, load = commands.analyze_ct, ModelStore.load
+
+    def analyze_ct_spans(**kw):
+        captured["result"] = analyze_ct(spans=spans, **kw)
+        return captured["result"]
+
+    def load_counted(self, *a, **kw):
+        loads.append(a[0] if a else kw.get("task_id"))
+        return load(self, *a, **kw)
+
+    env_before = dict(os.environ)
+    os.environ.update(BOA_WEIGHTS_PATH=str(root), BOA_TPU_CONFIG_DIR=str(root / "cfg"))
+    commands.analyze_ct, ModelStore.load = analyze_ct_spans, load_counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rc.reset_launches()
+        pc.reset_launches()
+        t0 = time.perf_counter()
+        cli.run(["-i", str(root / "ct.nii.gz"), "-o", str(root / out_name), "-m", "total+bca",
+                 "--fast-total", *flags])
+        dt = time.perf_counter() - t0
+        got = dict(rc.LAUNCHES, **pc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        commands.analyze_ct, ModelStore.load = analyze_ct, load
+        os.environ.clear()
+        os.environ.update(env_before)
+    stats = captured["result"][1]
+    debug = (root / out_name / "debug_information.txt").read_text()
+    return {
+        "sec": dt, "stats": {k: v for k, v in stats.items()
+                             if k.endswith("_time") or k in ("iv_contrast_phase",
+                                                             "git_contrast", "bca_regions")},
+        "logged_spans": _debug_spans(debug),   # analyze_ct's, at INFO under the CLI
+        "peak_mem_gib": peak, "spans": spans, "launches": got, "expected": expect,
+        "checkpoint_loads": loads, "checkpoint_loads_bca_study": study["store"].loads,
+        "folder": root / out_name}
+
+
 def phase_cli(torch, rc, pc) -> dict:
     """The front door, `python -m boa_tpu_torch`, from a CT file to its
     files and output.xlsx. (a) the command as a subprocess with `--device
@@ -1690,22 +1768,13 @@ def phase_cli(torch, rc, pc) -> dict:
     from boa_tpu_torch import cli, commands
     from boa_tpu_torch.bca import pipeline as bca_pipeline
     from boa_tpu_torch.compute import inference as inference_mod
-    from boa_tpu_torch.compute.inference import compute_all_models
     from boa_tpu_torch.io import nifti
     from boa_tpu_torch.io.xlsx import read_xlsx
     from boa_tpu_torch.testing import anatomy
-    from boa_tpu_torch.weights.store import ModelStore
 
     repo = Path(__file__).resolve().parent
     card = torch.cuda.get_device_name(0)
     res = {}
-
-    def launches() -> dict:
-        return dict(rc.LAUNCHES, **pc.LAUNCHES)
-
-    def reset() -> None:
-        rc.reset_launches()
-        pc.reset_launches()
 
     def files_of(folder: Path) -> dict:
         """The label files load, the workbook has its six sheets and the
@@ -1811,66 +1880,22 @@ def phase_cli(torch, rc, pc) -> dict:
 
     # --- (c) the full-width study through cli.run, after bca (c)'s warm-up
     t_part = time.perf_counter()
-    study = _bca_study()
-    root, img = study["root"], study["img"]
-    if not study["warm"]:   # the cli phase alone: warm up as bca (c) does
-        compute_all_models(root / "ct.nii.gz", root / "warm", ["total", "bca"],
-                           store=study["store"], totalsegmentator_params={"fast": True},
-                           bca_params={"save_pdf": False})
-        study["warm"] = True
-    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))
-    captured, spans, loads = {}, {}, []
-    analyze_ct, load = commands.analyze_ct, ModelStore.load
-
-    def analyze_ct_spans(**kw):
-        captured["result"] = analyze_ct(spans=spans, **kw)
-        return captured["result"]
-
-    def load_counted(self, *a, **kw):
-        loads.append(a[0] if a else kw.get("task_id"))
-        return load(self, *a, **kw)
-
-    env_before = dict(os.environ)
-    os.environ.update(BOA_WEIGHTS_PATH=str(root), BOA_TPU_CONFIG_DIR=str(root / "cfg"))
-    commands.analyze_ct, ModelStore.load = analyze_ct_spans, load_counted
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        t0 = time.perf_counter()
-        cli.run(["-i", str(root / "ct.nii.gz"), "-o", str(root / "cli"), "-m", "total+bca",
-                 "--fast-total", "--bca-no-pdf"])
-        dt = time.perf_counter() - t0
-        got = launches()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    finally:
-        commands.analyze_ct, ModelStore.load = analyze_ct, load
-        os.environ.clear()
-        os.environ.update(env_before)
-    out = files_of(root / "cli")
-    stats = captured["result"][1]
-    logged = _debug_spans(out["debug"])   # analyze_ct's spans, at INFO under the CLI
+    run = _cli_study(torch, rc, pc, "cli", ["--bca-no-pdf"])
+    out = files_of(run.pop("folder"))
+    expect, spans, got, loads = run["expected"], run["spans"], run["launches"], \
+        run["checkpoint_loads"]
     res["study"] = {
-        "sec": dt, "stats": {k: v for k, v in stats.items()
-                             if k.endswith("_time") or k in ("iv_contrast_phase",
-                                                             "git_contrast", "bca_regions")},
-        "logged_spans": logged,
-        "peak_mem_gib": peak, "spans": spans, "launches": got, "expected": expect,
-        "checkpoint_loads": loads, "checkpoint_loads_bca_study": study["store"].loads,
-        "files": out["files"], "rows": {n: len(v) for n, v in out["sheets"].items()},
+        **run, "files": out["files"], "rows": {n: len(v) for n, v in out["sheets"].items()},
         "info": out["sheets"]["info"], "part_s": time.perf_counter() - t_part}
     emit({"phase": "cli", "part": "study", **res["study"]})
-    assert card in out["debug"] and "Contrast phase prediction" in logged, logged
+    assert card in out["debug"] and "Contrast phase prediction" in run["logged_spans"], \
+        run["logged_spans"]
     assert (spans["tiles"], spans["tile_forwards"]) == \
         (expect["tiles"], expect["tile_forwards"]), spans
     assert got == _want_launches(expect["tile_forwards"]), got
     # each model loaded once: by bca (c) (or the warm-up), none here
-    assert not loads and study["store"].loads == 3, (loads, study["store"].loads)
-    emit({"phase": "cli", "part": "renderers",
-          "bca_pdf": "not run: the PDF renderer is not ported (ROADMAP M9 (i)); "
-                     "--bca-no-pdf is required",
-          "preview": "not run: the preview renderer is not ported (ROADMAP M9 (i)); "
-                     "--preview raises"})
+    assert not loads and run["checkpoint_loads_bca_study"] == 3, \
+        (loads, run["checkpoint_loads_bca_study"])
     return res
 
 
@@ -2070,6 +2095,165 @@ def phase_dicom(torch, rc, pc) -> dict:
     return res
 
 
+def _png_rgb(path) -> np.ndarray:
+    """A PNG of the port's writer (8-bit RGB or RGBA, filter 0 on every
+    row) as a (height, width, 3) uint8 array."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", path
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = header[:4]
+    channels = {2: 3, 6: 4}[ctype]
+    assert depth == 8, header
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, channels)[..., :3]
+
+
+def _panel_colour(rgb: np.ndarray) -> list[int]:
+    """Pixels of saturation above 0.15 in each of the montage's five panels
+    (tests/test_bca.py's bar wants more than 50 in each)."""
+    return [int(((p.max(-1) - p.min(-1)) > 0.15).sum())
+            for p in np.array_split(rgb.astype(np.float32) / 255, 5, axis=1)]
+
+
+def _pdf_pages(data: bytes) -> int:
+    return data.count(b"/Type /Page") - data.count(b"/Type /Pages")
+
+
+def phase_render(torch, rc, pc) -> dict:
+    """The renderers: (a) the preview's front pass on the card at 512x512x300
+    (the anatomy phantom's `total` labels, every ROI group filled): CUDA-event
+    ms of `_group_fronts_device` (median of 5 after a warm-up) against the
+    plain host version (`_label_depths` + `_group_fronts_from_depths`, timed
+    once): fronts, label indices and label lists equal to the bit, and the
+    montages drawn from both byte-identical, 1760 x 660, with the montage's
+    seconds; (b) `analyze_ct` through the anatomy hook at 512x512x300 with
+    `total_preview=True, bca_pdf=True` on the card: report.pdf has 3 + one
+    page per aggregation window, preview_total.png more than 50 coloured
+    pixels in every panel, and the spans of the front pass, the deferred
+    montage and the PDF; (c) `cli.run` on bca (c)'s file and stores,
+    `-m total+bca --fast-total --preview` with the PDF on: seconds, stats,
+    spans, peak memory, launches tiles x folds x (4, 1, 1) with no K5 and no
+    model loaded again, both files written."""
+    from pathlib import Path
+
+    from boa_tpu_torch import commands
+    from boa_tpu_torch.compute import preview
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.testing import anatomy
+
+    res = {}
+    spacing = (1.5, 1.5, 3.0)
+
+    # --- (a) the front pass on the card against its plain host version
+    t_part = time.perf_counter()
+    seg = anatomy.fake_total_seg(STUDY_SHAPE, spacing)
+    ct = anatomy.synth_ct(STUDY_SHAPE, spacing)
+    cmap = get_class_map("total")
+    inv = {v: k for k, v in cmap.items()}
+    n_labels = max(cmap) + 1
+    seg_dev = torch.from_numpy(seg).cuda()
+    preview._group_fronts_device(seg_dev, inv, n_labels)   # warm-up
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        dev = preview._group_fronts_device(seg_dev, inv, n_labels)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    host = preview._group_fronts_from_depths(preview._label_depths(seg, n_labels), inv)
+    host_s = time.perf_counter() - t0
+    equal = {}
+    for group in preview.ROI_GROUPS:
+        (fd, wd, ld), (fh, wh, lh) = dev[group], host[group]
+        equal[group] = bool(ld == lh and fd.dtype == fh.dtype and wd.dtype == wh.dtype
+                            and np.array_equal(fd, fh) and np.array_equal(wd, wh))
+    aspect = spacing[2] / spacing[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        preview._render_montage(ct, dev, aspect, tmp / "dev.png")
+        montage_s = time.perf_counter() - t0
+        preview._render_montage(ct, host, aspect, tmp / "host.png")
+        same_png = (tmp / "dev.png").read_bytes() == (tmp / "host.png").read_bytes()
+        rgb = _png_rgb(tmp / "dev.png")
+    res["fronts"] = {
+        "shape": list(STUDY_SHAPE), "device_ms": statistics.median(times), "device_ms_all": times,
+        "host_s": host_s, "montage_s": montage_s, "equal": equal, "png_identical": same_png,
+        "png_shape": list(rgb.shape), "panel_colour_px": _panel_colour(rgb),
+        "hit_px": {g: int(np.isfinite(dev[g][0]).sum()) for g in preview.ROI_GROUPS},
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "render", "part": "fronts", **res["fronts"]})
+    assert all(equal.values()) and same_png, (equal, same_png)
+    assert rgb.shape == (660, 1760, 3) and min(res["fronts"]["panel_colour_px"]) > 50
+    del seg_dev
+
+    # --- (b) the product path through the anatomy hook, renders on
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        nifti.save(nifti.NiftiImage(data=ct, affine=np.diag([*spacing, 1.0])),
+                   tmp / "ct.nii.gz")
+        spans: dict = {}
+        t0 = time.perf_counter()
+        _, stats = commands.analyze_ct(
+            tmp / "ct.nii.gz", tmp / "out", tmp / "out", models=["total", "bca"],
+            fast_total=True, total_preview=True, bca_pdf=True, cnr_adjustment=True,
+            fake_predict=anatomy.fake_predict_factory(), device="cuda", spans=spans)
+        sec = time.perf_counter() - t0
+        out = tmp / "out"
+        pages = _pdf_pages((out / "report.pdf").read_bytes())
+        n_aggs = len(json.loads((out / "bca-measurements.json").read_text())["aggregated"])
+        rgb = _png_rgb(out / "preview_total.png")
+        res["product"] = {
+            "sec": sec, "stats": {k: v for k, v in stats.items() if k.endswith("_time")},
+            "render_spans": {k: spans[k] for k in ("preview_fronts", "preview_render",
+                                                   "report_pdf")},
+            "spans": spans, "pdf_pages": pages, "aggregations": n_aggs,
+            "pdf_bytes": (out / "report.pdf").stat().st_size,
+            "png_shape": list(rgb.shape), "panel_colour_px": _panel_colour(rgb),
+            "part_s": time.perf_counter() - t_part}
+    emit({"phase": "render", "part": "product", **res["product"]})
+    assert pages == 3 + n_aggs, (pages, n_aggs)
+    assert rgb.shape == (660, 1760, 3) and min(res["product"]["panel_colour_px"]) > 50
+
+    # --- (c) the timed product command, renders on
+    t_part = time.perf_counter()
+    run = _cli_study(torch, rc, pc, "render", ["--preview"])
+    folder = run.pop("folder")
+    sizes = {n: (folder / n).stat().st_size for n in ("report.pdf", "preview_total.png")}
+    expect, spans, got = run["expected"], run["spans"], run["launches"]
+    res["study"] = {**run, "render_sizes": sizes,
+                    "render_spans": {k: spans.get(k) for k in (
+                        "preview_fronts", "preview_render", "report_pdf")},
+                    "files": sorted(p.name for p in folder.iterdir()),
+                    "part_s": time.perf_counter() - t_part}
+    emit({"phase": "render", "part": "study", **res["study"]})
+    assert min(sizes.values()) > 0, sizes
+    assert (spans["tiles"], spans["tile_forwards"]) == \
+        (expect["tiles"], expect["tile_forwards"]), spans
+    assert got == _want_launches(expect["tile_forwards"]), got
+    assert not run["checkpoint_loads"] and run["checkpoint_loads_bca_study"] == 3, \
+        (run["checkpoint_loads"], run["checkpoint_loads_bca_study"])
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -2161,6 +2345,8 @@ def main() -> int:
         cli = phase_cli(torch, rc, pc)
     if "dicom" in phases:
         phase_dicom(torch, rc, pc)
+    if "render" in phases:
+        phase_render(torch, rc, pc)
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli)})
     emit({"ok": True, "device": {"platform": "gpu",

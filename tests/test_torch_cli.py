@@ -307,14 +307,12 @@ def test_cli_anatomy_hook_cnr_golden(tmp_path):
 
 @pytest.mark.parametrize("flags,env,match", [
     (["--radiomics", "--bca-no-pdf"], {}, r"M9 \(iii\)"),
-    (["--preview", "--bca-no-pdf"], {}, r"M9 \(i\)"),
-    (["-m", "total+bca"], {}, r"M9 \(i\)"),
     (["-m", "bca", "--bca-no-pdf"], {"BOA_CONTRAST_MODEL": "bundle.pkl"}, r"M9 \(vi\)"),
 ])
 def test_unported_inputs_raise_before_any_model(tmp_path, monkeypatch, flags, env, match):
-    """--radiomics, --preview, bca without --bca-no-pdf and a trained
-    contrast bundle (the file exists) raise NotImplementedError naming their
-    ROADMAP item before any model runs or any file is written."""
+    """--radiomics and a trained contrast bundle (the file exists) raise
+    NotImplementedError naming their ROADMAP item before any model runs or
+    any file is written."""
     def no_models(*a, **kw):
         raise AssertionError("a model ran")
 
@@ -327,6 +325,45 @@ def test_unported_inputs_raise_before_any_model(tmp_path, monkeypatch, flags, en
     with pytest.raises(NotImplementedError, match=match):
         tcli.run(["-i", str(study), "-o", str(tmp_path / "out"), "--device", "cpu", *flags])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flags,render", [
+    (["-m", "total", "--preview"], "preview_total.png"),
+    (["-m", "total+bca"], "report.pdf"),
+])
+def test_renderer_flags_write_their_files(tmp_path, monkeypatch, flags, render):
+    """`--preview`, and `bca` without `--bca-no-pdf`, which raised before any
+    model until the renderers were ported (ROADMAP M9 (i)), run through the
+    BOA_TEST_ANATOMY hook on the CPU and write their file with the rest."""
+    monkeypatch.setenv("BOA_TEST_ANATOMY", "1")
+    monkeypatch.setenv("SKIP_CONTRAST_INFORMATION", "1")
+    study = _phantom(tmp_path)
+    out = tmp_path / "out"
+    tcli.run(["-i", str(study), "-o", str(out), "--fast-total", "--device", "cpu", *flags])
+    files = {p.name for p in out.iterdir()}
+    assert {render, "output.xlsx", "total.nii.gz"} <= files
+    assert ("report.pdf" in files) == ("total+bca" in flags)
+    assert ("preview_total.png" in files) == ("--preview" in flags)
+    assert (out / render).stat().st_size > 1000
+
+
+@pytest.mark.parametrize("worker", [False, True])
+def test_analyze_ct_writes_the_renders(tmp_path, worker):
+    """tests/test_commands.py's artefact check on the port: `total+bca` with
+    `total_preview=True, bca_pdf=True` through the anatomy hook writes
+    preview_total.png and report.pdf, with its own HostWorker and with a
+    shared one (reaped by the caller)."""
+    from boa_tpu_torch.utils.stages import HostWorker
+
+    study = _phantom(tmp_path)
+    out = tmp_path / "out"
+    kw = dict(models=["total", "bca"], compute_contrast_information=True, total_preview=True,
+              bca_pdf=True, fast_total=True, fake_predict=tanat.fake_predict_factory(),
+              device="cpu")
+    with HostWorker() as w:
+        tcmd.analyze_ct(study, out, out, worker=w if worker else None, **kw)
+    for art in ("preview_total.png", "report.pdf"):
+        assert (out / art).stat().st_size > 1000, art
 
 
 def test_empty_dicom_directory_raises_as_reference(tmp_path, monkeypatch):

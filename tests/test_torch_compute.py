@@ -11,6 +11,7 @@ intensities within 1e-3 HU (the reference sums in float32).
 """
 
 import json
+import logging
 import time
 
 import numpy as np
@@ -164,15 +165,53 @@ def test_recompute_false_skips_and_measures_from_files(study, tmp_path):
     (["total"], {"preview": True}, None),
     (["total", "bca"], {}, None), (["bca"], {}, {"save_pdf": True}),
 ])
-def test_unported_parts_raise(study, tmp_path, models, params, bca_params):
-    """The preview and the BCA PDF (the default of save_pdf) raise, naming
-    M9, before anything is written."""
+def test_unported_parts_raise(study, bca_study, tmp_path, models, params, bca_params):
+    """The preview and the BCA PDF (the default of save_pdf), which raised
+    until their renderers were ported (ROADMAP M9 (i)), now write
+    preview_total.png and report.pdf beside the study's other files, as
+    the reference does (tests/test_commands.py)."""
+    from boa_tpu_torch.testing import anatomy as tanat
+
+    root = study[0] if models == ["total"] else bca_study
+    tinf.compute_all_models(root / "ct.nii.gz", tmp_path, models,
+                            totalsegmentator_params={"fast": True, **params},
+                            bca_params=bca_params, device="cpu",
+                            fake_predict=fake if models == ["total"]
+                            else tanat.fake_predict_factory())
+    want = {"preview_total.png"} if params else {"report.pdf", *BCA_FILES["bca"]}
+    if "total" in models:
+        want |= {"ct_pfav.nii.gz", "total-measurements.json", "total-statistics.json",
+                 "total.nii.gz"}
+    else:
+        want.discard("vertebrae.json")   # the vertebra windows come from total
+    assert set(_files(tmp_path)) == want
+    render = tmp_path / ("preview_total.png" if params else "report.pdf")
+    assert render.stat().st_size > 1000
+
+
+@pytest.mark.parametrize("worker", [False, True])
+def test_failed_preview_keeps_the_study(study, tmp_path, monkeypatch, caplog, worker):
+    """A preview render that raises is logged as a warning, as the
+    reference logs it, inline or on the HostWorker, and every other file
+    of the study is written as without the preview."""
+    from boa_tpu_torch.compute import preview as tprev
+
+    def broken(*a):
+        raise RuntimeError("injected render failure")
+
+    monkeypatch.setattr(tprev, "_render_montage", broken)
+    caplog.set_level(logging.WARNING)
     root, _ = study
-    with pytest.raises(NotImplementedError, match="M9"):
-        tinf.compute_all_models(root / "ct.nii.gz", tmp_path, models,
-                                totalsegmentator_params=params, bca_params=bca_params,
-                                fake_predict=fake, device="cpu")
-    assert not any(tmp_path.iterdir())
+    kw = dict(totalsegmentator_params={"fast": True, "preview": True}, fake_predict=fake,
+              device="cpu")
+    if worker:
+        with HostWorker() as w:
+            tinf.compute_all_models(root / "ct.nii.gz", tmp_path, MODELS, worker=w, **kw)
+    else:
+        tinf.compute_all_models(root / "ct.nii.gz", tmp_path, MODELS, **kw)
+    _same_outputs(tmp_path, root / "ref")
+    assert ("Deferred stage preview-render failed" if worker
+            else "Preview generation failed") in caplog.text
 
 
 @pytest.fixture(scope="module")

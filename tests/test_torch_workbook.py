@@ -204,10 +204,46 @@ def test_bca_metrics_empty_groups_and_slices(tmp_path):
     assert got[1] == (["SliceNumber"], [])
 
 
-def test_store_axes_raises(phantom_run):
+def test_store_axes_raises(phantom_run, tmp_path):
+    """`store_axes=True`, which raised until the renderers were ported
+    (ROADMAP M9 (i)), writes major_minor_axis.png as the reference does: the
+    middle L3 slice in gray with the reference's major axis in green and its
+    minor axis in blue (a point a quarter along each), and the same info
+    rows."""
+    import shutil
+
+    from PIL import Image
+
+    from boa_tpu.compute.geometry import find_axes
+    from boa_tpu.tasks.class_maps import get_class_map
+
     root, _, _ = phantom_run
-    with pytest.raises(NotImplementedError, match=r"M9 \(i\)"):
-        tts.compute_segmentator_metrics(root / "ct.nii.gz", root / "got", store_axes=True)
+    for name in ("got", "ref"):
+        shutil.copytree(root / name, tmp_path / name)
+    info = tts.compute_segmentator_metrics(root / "ct.nii.gz", tmp_path / "got",
+                                           store_axes=True)[0]
+    winfo = jts.compute_segmentator_metrics(root / "ct.nii.gz", tmp_path / "ref",
+                                            store_axes=True)[0]
+    assert [r["name"] for r in info] == [r["name"] for r in winfo]
+    assert [r["value"] for r in info] == pytest.approx([r["value"] for r in winfo],
+                                                       rel=1e-3, abs=1e-6)
+    assert (tmp_path / "ref" / "major_minor_axis.png").stat().st_size > 1000
+    with Image.open(tmp_path / "got" / "major_minor_axis.png") as im:
+        rgb = np.asarray(im)
+    total = tn.load(tmp_path / "got" / "total.nii.gz").data
+    body = tn.load(tmp_path / "got" / "body_parts.nii.gz").data
+    l3 = {v: k for k, v in get_class_map("total").items()}["vertebrae_L3"]
+    zs = np.where((total == l3).any(axis=(0, 1)))[0]
+    middle = body[:, :, int(np.median(zs))] == 1
+    assert max(rgb.shape[:2]) == 740 and rgb.shape[2] == 3
+    scale = rgb.shape[0] / middle.shape[0]
+    assert rgb.shape[1] == round(middle.shape[1] * scale)
+    major_a, major_b, minor_a, minor_b = find_axes(middle)
+    for (a, b), color in (((major_a, major_b), [0, 128, 0]), ((minor_a, minor_b), [0, 0, 255])):
+        col, row = (a + 0.25 * (b - a) + 0.5) * scale
+        assert (rgb[int(row), int(col)] == color).all()
+        assert (rgb == color).all(axis=-1).sum() > 1000
+    assert set(np.unique(rgb[..., 0])) <= {0, 255}   # the mask in gray: black, white
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
