@@ -7,8 +7,10 @@ the deprecated `PREDICT_FAST`), the same console logging (root at WARNING,
 the package's loggers at INFO, shown with --verbose) and the
 `BOA_TEST_ANATOMY` fake-inference hook. The input (`-i`) is a DICOM series
 directory, the default `/dicoms`, or a NIfTI file. The device is the card
-unless `--device cpu`; without CUDA the run stops. What is not ported raises
-before any model runs: `--radiomics` (ROADMAP M9 (iii)).
+unless `--device cpu`; without CUDA the run stops. `--radiomics` writes
+`statistics_radiomics.json` over the label files after the study; like the
+reference, it reads the input as a NIfTI file, so a DICOM directory input
+raises there.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 import warnings
 from pathlib import Path
 
@@ -127,9 +130,6 @@ def run(argv: list[str] | None = None) -> None:
         fast_bca = True
         fast_total = True
 
-    if args.radiomics:
-        raise NotImplementedError("--radiomics is not ported yet (ROADMAP M9 (iii))")
-
     # fake-inference hook (the reference's `test=N` mode): the anatomy
     # phantom's labels replace every model forward
     fake_predict = None
@@ -162,6 +162,16 @@ def run(argv: list[str] | None = None) -> None:
         theme=theme,
         fake_predict=fake_predict,
     )
+
+    if args.radiomics:
+        from boa_tpu_torch.measure.radiomics import get_radiomics_features_for_entire_dir
+
+        logger.info("Calculating radiomics...")
+        st = time.time()
+        get_radiomics_features_for_entire_dir(
+            args.input_image, args.output_dir,
+            args.output_dir / "statistics_radiomics.json", device=device)
+        logger.info("  calculated in %.2fs", time.time() - st)
 
     if args.use_study_prefix:
         prefix = args.input_image.name.removesuffix(".nii.gz") + "_"

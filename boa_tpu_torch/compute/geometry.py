@@ -119,3 +119,133 @@ def find_axes(middle_slice: np.ndarray):
     minor_a = _minor_point_on_ray(boundary, mid, perp)
     minor_b = _minor_point_on_ray(boundary, mid, -perp)
     return major_a, major_b, minor_a, minor_b
+
+
+# Freeman directions of the border follower as (dx, dy) on the image (rows
+# y down): 0 is +x, and the index runs counter-clockwise as displayed
+_CODE_DELTAS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+
+
+def _follow_border(img: list, i0: int, hole: bool, deltas: list, width: int,
+                   mark: int) -> list[tuple[int, int]]:
+    """Suzuki-Abe border following from `i0` over the flat, zero-framed
+    image `img` (0 background, 1 unvisited foreground, +-(id + 2) marks),
+    as OpenCV's `icvFetchContour` does it: the first neighbour found
+    clockwise from the background side, then counter-clockwise searches,
+    the pixel marked -mark where its right neighbour was examined as
+    background, else +mark when unvisited. Returns the simple-chain points
+    (a point wherever the direction changes), in framed (x, y)."""
+    s = s_end = 0 if hole else 4
+    while True:
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if img[i1] != 0 or s == s_end:
+            break
+    x, y = i0 % width, i0 // width
+    if s == s_end:   # an isolated pixel
+        img[i0] = -mark
+        return [(x, y)]
+    pts = []
+    i3, prev_s = i0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            i4 = i3 + deltas[s]
+            if img[i4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:   # the right neighbour was examined: background
+            img[i3] = -mark
+        elif img[i3] == 1:
+            img[i3] = mark
+        if s != prev_s:
+            pts.append((x, y))
+            prev_s = s
+        dx, dy = _CODE_DELTAS[s]
+        x += dx
+        y += dy
+        if i4 == i0 and i3 == i1:
+            break
+        i3 = i4
+        s = (s + 4) & 7
+    return pts
+
+
+def find_contours(mask: np.ndarray) -> list[np.ndarray]:
+    """Outer and hole borders of the nonzero pixels of a 2D (rows, cols)
+    mask, as OpenCV's `cv2.findContours(mask, cv2.RETR_CCOMP,
+    cv2.CHAIN_APPROX_SIMPLE)[0]` returns them: each an (n, 1, 2) int32
+    array of (x = col, y = row) points of border pixels, 8-connected
+    foreground, only the points where the chain turns (a straight run keeps
+    its ends); an isolated pixel gives one point. The order is OpenCV's
+    two-level tree walked depth-first: outer borders last found first, each
+    followed by its holes, last found first.
+
+    The raster scan for border starts is numpy (every pixel with background
+    on its left is an outer candidate, every background pixel with
+    foreground on its left a hole candidate); the scan then visits only the
+    candidates, in raster order, and the borders are followed in Python on
+    the mask's bounding box with a zero frame (so a mask touching the edge
+    is traced as OpenCV traces it after its one-pixel border)."""
+    m = np.asarray(mask) != 0
+    if m.ndim != 2:
+        raise ValueError(f"find_contours takes a 2D mask, not {m.shape}")
+    rows = np.flatnonzero(m.any(axis=1))
+    if rows.size == 0:
+        return []
+    cols = np.flatnonzero(m.any(axis=0))
+    y0, x0 = int(rows[0]), int(cols[0])
+    sub = m[y0:int(rows[-1]) + 1, x0:int(cols[-1]) + 1]
+    framed = np.zeros((sub.shape[0] + 2, sub.shape[1] + 2), np.int8)
+    framed[1:-1, 1:-1] = sub
+    width = framed.shape[1]
+    left, here = framed[:, :-2], framed[:, 1:-1]   # the scan's x runs over 1 .. width - 2
+    outer = (here == 1) & (left == 0)
+    hole = (here == 0) & (left == 1)
+    cand = np.flatnonzero((outer | hole).ravel())
+    is_hole = hole.ravel()[cand]
+    # flat index in the framed image: (y, x - 1) of the trimmed grid -> y * width + x
+    starts = cand + cand // (width - 2) * 2 + 1
+    img = framed.ravel().tolist()
+    deltas = [1, 1 - width, -width, -width - 1, -1, width - 1, width, width + 1] * 2
+
+    contours: list[list[tuple[int, int]]] = []
+    holes: list[bool] = []
+    parent: list[int] = []
+    children: dict[int, list[int]] = {-1: []}   # -1: the frame
+    for pos, h in zip(starts.tolist(), is_hole.tolist()):
+        if h:
+            if img[pos - 1] < 1:   # a right-bound border pixel: no new hole
+                continue
+            start = pos - 1
+            # the nearest marked pixel to the left names the border around
+            q = start
+            while img[q] in (0, 1) and q % width:
+                q -= 1
+            if q % width == 0:
+                par = -1
+            else:
+                owner = abs(img[q]) - 2
+                par = parent[owner] if holes[owner] else owner
+        else:
+            if img[pos] != 1:   # visited by an earlier border
+                continue
+            start, par = pos, -1
+        cid = len(contours)
+        contours.append(_follow_border(img, start, h, deltas, width, cid + 2))
+        holes.append(h)
+        parent.append(par)
+        children[cid] = []
+        children[par].append(cid)
+
+    order: list[int] = []
+
+    def walk(node: int) -> None:   # each list newest first, as OpenCV links them
+        for k in reversed(children[node]):
+            order.append(k)
+            walk(k)
+
+    walk(-1)
+    off = np.array([x0 - 1, y0 - 1], np.int32)
+    return [(np.asarray(contours[k], np.int32) + off).reshape(-1, 1, 2) for k in order]

@@ -100,7 +100,8 @@ ENCAPSULATED_PDF_STORAGE = "1.2.840.10008.5.1.4.1.1.104.1"
 # pydicom's UID root (so deterministic UIDs match across implementations)
 PYDICOM_ROOT_UID = "1.2.826.0.1.3680043.8.498."
 
-# keyword -> (group, element, VR). The subset BOA touches plus SEG/PDF needs.
+# keyword -> (group, element, VR). The subset BOA touches plus what the
+# SEG, PDF and RTSTRUCT writers need.
 DICT: dict[str, tuple[int, int, str]] = {
     "FileMetaInformationGroupLength": (0x0002, 0x0000, "UL"),
     "FileMetaInformationVersion": (0x0002, 0x0001, "OB"),
@@ -221,6 +222,28 @@ DICT: dict[str, tuple[int, int, str]] = {
     "DeviceSerialNumber": (0x0018, 0x1000, "LO"),
     "StationName": (0x0008, 0x1010, "SH"),
     "InstitutionName": (0x0008, 0x0080, "LO"),
+    # RT Structure Set (io/rtstruct.py)
+    "StructureSetLabel": (0x3006, 0x0002, "SH"),
+    "StructureSetDate": (0x3006, 0x0008, "DA"),
+    "StructureSetTime": (0x3006, 0x0009, "TM"),
+    "StructureSetROISequence": (0x3006, 0x0020, "SQ"),
+    "ROIContourSequence": (0x3006, 0x0039, "SQ"),
+    "RTROIObservationsSequence": (0x3006, 0x0080, "SQ"),
+    "ROINumber": (0x3006, 0x0022, "IS"),
+    "ROIName": (0x3006, 0x0026, "LO"),
+    "ROIGenerationAlgorithm": (0x3006, 0x0036, "CS"),
+    "ReferencedFrameOfReferenceUID": (0x3006, 0x0024, "UI"),
+    "ROIDisplayColor": (0x3006, 0x002A, "IS"),
+    "ContourSequence": (0x3006, 0x0040, "SQ"),
+    "ContourGeometricType": (0x3006, 0x0042, "CS"),
+    "NumberOfContourPoints": (0x3006, 0x0046, "IS"),
+    "ContourData": (0x3006, 0x0050, "DS"),
+    "ContourImageSequence": (0x3006, 0x0016, "SQ"),
+    "ReferencedROINumber": (0x3006, 0x0084, "IS"),
+    "ObservationNumber": (0x3006, 0x0082, "IS"),
+    "RTROIInterpretedType": (0x3006, 0x00A4, "CS"),
+    "ROIInterpreter": (0x3006, 0x00A6, "PN"),
+    "ReferencedFrameOfReferenceSequence": (0x3006, 0x0010, "SQ"),
 }
 TAG_TO_KEYWORD = {(g, e): kw for kw, (g, e, _vr) in DICT.items()}
 TAG_TO_VR = {(g, e): vr for kw, (g, e, vr) in DICT.items()}

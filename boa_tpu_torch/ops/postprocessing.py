@@ -2,8 +2,8 @@
 
 Counterpart of `boa_tpu/ops/postprocessing.py` (TotalSegmentator
 `postprocessing.py`): keep the largest blob or drop small blobs per label,
-zero labels outside a dilated mask, and strip a task's training-only
-auxiliary labels.
+zero labels outside a dilated mask, the skin band of a body mask, and strip
+a task's training-only auxiliary labels.
 """
 
 from __future__ import annotations
@@ -54,6 +54,20 @@ def remove_outside_of_mask(seg: np.ndarray, mask: np.ndarray,
     out = seg.copy()
     out[dilated == 0] = 0
     return out
+
+
+def extract_skin(ct_data: np.ndarray, body_mask: np.ndarray) -> np.ndarray:
+    """Skin: the body dilated once less the body eroded three times (the
+    6-neighbourhood cross), kept where -200 < HU < 250, without blobs of
+    under 5 voxels (TotalSegmentator `postprocessing.py:134-164`)."""
+    body = (body_mask > 0.5).astype(np.uint8)
+    outer = morphology.binary_dilation_cross(body, iterations=1)
+    inner = morphology.binary_erosion_cross(body, iterations=3)
+    skin = ((outer.astype(np.int8) - inner.astype(np.int8)) > 0).astype(np.uint8)
+    skin[ct_data <= -200] = 0
+    skin[ct_data >= 250] = 0
+    skin = remove_small_blobs(skin, interval=(5, 1e10))
+    return skin.astype(np.uint8)
 
 
 def remove_auxiliary_labels(seg: np.ndarray, task_name: str) -> np.ndarray:

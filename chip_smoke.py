@@ -59,7 +59,8 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               those its split plan gives (three a tile at 32^3, none at 128^3)
 7. measure  - the measurement path from a CT file to the study's files:
               (a) `compute_all_models(ct_path, out, ["total"])` with the small
-              five-model store of 6 (a) on a 96x96x64 `.nii.gz` written by the
+              five-model store of 6 (a) at two stages (widths 32/64) on a
+              96x96x64 `.nii.gz` written by the
               port's codec, on the card and on the CPU: total.nii.gz,
               ct_pfav.nii.gz, total-statistics.json and total-measurements.json
               exist and load, labels agree > 0.99, launches as in 6 (a); (b) the
@@ -76,8 +77,9 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               launches of 6 (c)
 8. bca      - the BCA chain from a CT file to its files: (a)
               `compute_all_models(ct_path, out, ["total", "bca"])` with the
-              small five-model store of 6 (a) plus body_parts (543) and
-              body_regions (542) at the same widths with five folds each
+              small five-model store of 6 (a) at two stages (widths 32/64)
+              plus body_parts (543) and body_regions (542) at the same
+              widths with five folds each
               (1.5 x 1.5 x 5 mm, the plans' grid, the head bias with
               background's lead) on the 96x96x64 `.nii.gz`, on the card and on
               the CPU: every promised file exists and loads, the labels of each
@@ -158,18 +160,39 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               analyze_ct's stats, spans, peak memory, launches tiles x folds x
               (4, 1, 1) with no K5 and no model loaded again, both files
               written
+12. api     - the TotalSegmentator API (`python_api.totalsegmentator`) and
+              its writers on the full-width total_fast store, the anatomy
+              phantom's hook with `run_real` (the real forward on K1-K3, the
+              phantom's labels measured and written): (a) the 512x512x300
+              phantom from its .nii.gz with statistics, radiomics and the
+              preview, per-class masks: seconds, spans (predict, statistics,
+              radiomics_histogram, radiomics_shape, save_nifti, preview),
+              peak memory, launches tiles x (4, 1, 1); the 117 masks and the
+              preview byte-identical to the same call on the CPU with the
+              plain hook, statistics.json within 1e-3 HU with volumes equal,
+              statistics_radiomics.json within 1e-9 relative with counts
+              equal; (b) a 512x512x64 series of the phantom (`write_ct_series`)
+              through `ml=True` with nifti, dicom_seg and dicom_rtstruct: the
+              SEG read back equal to the NIfTI labels voxel for voxel, one ROI
+              per present label, every contour closed, >= 3 points, on the
+              pixel centres of its label's border, SEG and RTSTRUCT equal to
+              the CPU run's apart from UIDs, dates and times, the writers' and
+              the tracer's seconds, launches tiles x (4, 1, 1); (c) `cli.run
+              -m total --fast-total --radiomics` through the anatomy hook on a
+              96x96x32 phantom writes statistics_radiomics.json
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render) only those phases run after the device phase, and the kernel
-summary line is left out. Each phase prints one JSON line (the total,
-measure, bca, cli, dicom and render phases one per part).
+dicom, render, api) only those phases run after the device phase, and the
+kernel summary line is left out. Each phase prints one JSON line (the total,
+measure, bca, cli, dicom, render and api phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
-BCA study's, `launches_cli` the CLI study's) and, last,
+BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
+of api (a)) and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -181,6 +204,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -190,10 +214,13 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render")
+              "dicom", "render", "api")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
+# the small runs of the measure, bca and cli phases (card against the CPU):
+# two stages, cut from the small checks' three to keep the script's time
+SMALL_RUN_FEATURES = (32, 64)
 STUDY_SHAPE = (512, 512, 300)   # the bench's CT, as the measure phase's (b) and (c) use it
 PART_IDS = (291, 292, 293, 294, 295)   # the sub-models of `total`, merged in order
 BACKGROUND_LEAD = 1.0   # background's head bias over the largest other, per part
@@ -1060,7 +1087,7 @@ def _measure_volume(shape, spacing):
 
 def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
     """The measurement path. (a) `compute_all_models(ct_path, out, ["total"])`
-    on the small five-model store (widths 32/64/128, 32^3 patch) from a
+    on the small five-model store at two stages (widths 32/64, 32^3 patch) from a
     96x96x64 `.nii.gz` written by the port's codec, on the card and on the
     CPU: every promised file exists and loads, labels agree > 0.99, launches
     tiles x (4, 1, 1) with the split plan's finishing passes; (b) the
@@ -1115,7 +1142,7 @@ def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
     t_part = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        store = _parts_store(tmp, (32, 64, 128), (32, 32, 32), (1.5, 1.5, 1.5))
+        store = _parts_store(tmp, SMALL_RUN_FEATURES, (32, 32, 32), (1.5, 1.5, 1.5))
         img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
         nifti.save(img, tmp / "ct.nii.gz")
         spans: dict = {}
@@ -1425,7 +1452,7 @@ def _one_hot_alternatives(torch, ct, tissues, regions, torso) -> dict:
 def phase_bca(torch, rc, pc, timed: bool = True) -> dict:
     """The BCA chain. (a) `compute_all_models(ct_path, out, ["total", "bca"])`
     on small stores (the five sub-models of 6 (a), body_parts and
-    body_regions with five folds, widths 32/64/128, 32^3 patch) from a
+    body_regions with five folds, at two stages: widths 32/64, 32^3 patch) from a
     96x96x64 `.nii.gz`, on the card and on the CPU: every promised file
     exists and loads, labels agree > 0.99, bca-measurements.json has the
     same keys and Nones, launches tiles x folds x (4, 1, 1) with the split
@@ -1474,8 +1501,8 @@ def phase_bca(torch, rc, pc, timed: bool = True) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         patch = (32, 32, 32)
-        store = _parts_store(tmp, (32, 64, 128), patch, (1.5, 1.5, 1.5))
-        _bca_store(tmp, (32, 64, 128), patch)
+        store = _parts_store(tmp, SMALL_RUN_FEATURES, patch, (1.5, 1.5, 1.5))
+        _bca_store(tmp, SMALL_RUN_FEATURES, patch)
         img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
         nifti.save(img, tmp / "ct.nii.gz")
         spans: dict = {}
@@ -1795,8 +1822,8 @@ def phase_cli(torch, rc, pc) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         patch = (32, 32, 32)
-        _parts_store(tmp / "w", (32, 64, 128), patch, (1.5, 1.5, 1.5))
-        _bca_store(tmp / "w", (32, 64, 128), patch)
+        _parts_store(tmp / "w", SMALL_RUN_FEATURES, patch, (1.5, 1.5, 1.5))
+        _bca_store(tmp / "w", SMALL_RUN_FEATURES, patch)
         nifti.save(_bench_ct((96, 96, 64), (1.5, 1.5, 3.0)), tmp / "ct.nii.gz")
         args = ["-i", str(tmp / "ct.nii.gz"), "-m", "total+bca", "--fast-bca", "--bca-no-pdf"]
         t0 = time.perf_counter()
@@ -2254,6 +2281,286 @@ def phase_render(torch, rc, pc) -> dict:
     return res
 
 
+# --- phase 12: the TotalSegmentator API and its writers ----------------------
+
+_DICOM_VOLATILE = {"SOPInstanceUID", "SeriesInstanceUID", "MediaStorageSOPInstanceUID",
+                   "DimensionOrganizationUID", "SeriesDate", "SeriesTime", "ContentDate",
+                   "ContentTime", "StructureSetDate", "StructureSetTime"}
+
+
+def _same_dicom(got, want, path="") -> None:
+    """Two datasets element for element, apart from UIDs, dates and times."""
+    from boa_tpu_torch.io.dicom import TAG_TO_KEYWORD
+
+    if sorted(got.keys()) != sorted(want.keys()):
+        raise AssertionError(f"{path}: elements differ")
+    for tag in sorted(want.keys()):
+        kw = TAG_TO_KEYWORD.get(tag, str(tag))
+        if kw in _DICOM_VOLATILE:
+            continue
+        g, w = got.get(tag), want.get(tag)
+        if isinstance(w, list) and w and hasattr(w[0], "keys"):
+            if len(g) != len(w):
+                raise AssertionError(f"{path}/{kw}: {len(g)} items != {len(w)}")
+            for i, (a, b) in enumerate(zip(g, w)):
+                _same_dicom(a, b, f"{path}/{kw}[{i}]")
+        elif g != w:
+            raise AssertionError(f"{path}/{kw} differs")
+
+
+def _rtstruct_checks(rt, labels: np.ndarray, label_map: dict, headers) -> dict:
+    """One ROI per present label; every contour closed planar, >= 3 points,
+    each point on the centre of a pixel of its label's border (a pixel of
+    the label with a 4-neighbour outside it or outside the slice) in the
+    slice its contour image names."""
+    present = sorted(int(v) for v in np.unique(labels) if v and int(v) in label_map)
+    names = [r.ROIName for r in rt.StructureSetROISequence]
+    assert names == [label_map[v] for v in present], (names, present)
+    iop = np.asarray(headers[0].get("ImageOrientationPatient"), float)
+    row_sp, col_sp = (float(v) for v in headers[0].get("PixelSpacing"))
+    col_dir, row_dir = iop[:3], iop[3:]
+    z_of = {h.get("SOPInstanceUID"): z for z, h in enumerate(headers)}
+    n_contours = n_points = 0
+    worst = 0.0
+    for lb, rc in zip(present, rt.ROIContourSequence):
+        mask = labels == lb
+        for c in rc.ContourSequence:
+            pts = np.asarray(c.ContourData, float).reshape(-1, 3)
+            assert c.ContourGeometricType == "CLOSED_PLANAR" and len(pts) >= 3
+            assert int(c.NumberOfContourPoints) == len(pts)
+            z = z_of[c.ContourImageSequence[0].ReferencedSOPInstanceUID]
+            ipp = np.asarray(headers[z].get("ImagePositionPatient"), float)
+            x = (pts - ipp) @ col_dir / col_sp
+            y = (pts - ipp) @ row_dir / row_sp
+            xi, yi = np.rint(x).astype(int), np.rint(y).astype(int)
+            worst = max(worst, float(np.abs(x - xi).max()), float(np.abs(y - yi).max()))
+            sl = np.pad(mask[:, :, z], 1)
+            xi, yi = xi + 1, yi + 1
+            assert sl[xi, yi].all(), (lb, z)
+            inner = sl[xi - 1, yi] & sl[xi + 1, yi] & sl[xi, yi - 1] & sl[xi, yi + 1]
+            assert not inner.any(), (lb, z)
+            n_contours += 1
+            n_points += len(pts)
+    assert worst < 1e-3, worst
+    return {"rois": len(names), "contours": n_contours, "points": n_points,
+            "max_off_centre_px": worst}
+
+
+def _total_fast_store():
+    """The full-width `total_fast` store (task 297, widths 32..320, 128^3
+    patch): bca (c)'s when that phase wrote it, else one of its own,
+    written once per run of this script."""
+    if _BCA_STUDY:
+        return _BCA_STUDY["store"]
+    if "total_fast" not in _SHARED_STORES:
+        from boa_tpu_torch.tasks.class_maps import get_class_map
+
+        folder = tempfile.TemporaryDirectory()
+        _store(folder.name, TOTAL_FAST_FEATURES, (128, 128, 128),
+               ["background"] + list(get_class_map("total").values()))
+        _SHARED_STORES["total_fast"] = (folder, _CountingStore(folder.name))
+    return _SHARED_STORES["total_fast"][1]
+
+
+def phase_api(torch, rc, pc) -> dict:
+    """The TotalSegmentator API (`boa_tpu_torch.python_api.totalsegmentator`)
+    and its writers, on the full-width `total_fast` store with the anatomy
+    phantom's hook set to `run_real` (the real forward runs on K1-K3, the
+    labels measured and written are the phantom's): (a) the 512x512x300
+    phantom from its .nii.gz with statistics, radiomics and the preview,
+    per-class masks: seconds, spans, peak memory, launches tiles x (4, 1, 1);
+    the 117 masks byte-identical to the same call on the CPU with the plain
+    hook, statistics.json within 1e-3 HU (volumes equal),
+    statistics_radiomics.json within 1e-9 relative (counts equal), the
+    preview PNGs byte-identical; (b) a 512x512x64 series of the phantom
+    written by `write_ct_series` through `ml=True,
+    output_type=["nifti", "dicom_seg", "dicom_rtstruct"]`: the DICOM-SEG read
+    back equal to the NIfTI labels voxel for voxel, one RTSTRUCT ROI per
+    present label with every contour closed, of >= 3 points, on the pixel
+    centres of its label's border, both objects equal to the CPU run's
+    apart from UIDs, dates and times, the writers' and the tracer's
+    seconds; (c) `cli.run -m total --fast-total --radiomics` through the
+    anatomy hook on a 96x96x32 phantom at 3.5 x 3.5 x 9 mm:
+    statistics_radiomics.json written for total and ct_pfav, no launch
+    (the hook replaces the forward)."""
+    from pathlib import Path
+
+    from boa_tpu_torch import cli
+    from boa_tpu_torch.io import dicom, dicom_io, dicom_seg, nifti
+    from boa_tpu_torch.python_api import totalsegmentator
+    from boa_tpu_torch.testing import anatomy
+
+    res = {}
+    t_phase = time.perf_counter()
+    store = _total_fast_store()
+    spacing = (1.5, 1.5, 3.0)
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+
+    def real_hook():
+        fake = anatomy.fake_predict_factory()
+        fake.run_real = True   # the real forward runs first; its labels are dropped
+        return fake
+
+    def counts():
+        return dict(rc.LAUNCHES, **pc.LAUNCHES)
+
+    def reset():
+        rc.reset_launches()
+        pc.reset_launches()
+
+    # --- (a) the NIfTI study with statistics, radiomics and the preview
+    t_part = time.perf_counter()
+    ct = anatomy.synth_ct(STUDY_SHAPE, spacing)
+    nifti.save(nifti.NiftiImage(data=ct, affine=np.diag([*spacing, 1.0])), root / "ct.nii.gz")
+    kw = dict(task="total", fast=True, statistics=True, radiomics=True, preview=True,
+              store=store)
+    spans: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    _, stats = totalsegmentator(root / "ct.nii.gz", root / "gpu", fake_predict=real_hook(),
+                                spans=spans, **kw)
+    sec = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    _, stats_cpu = totalsegmentator(root / "ct.nii.gz", root / "cpu", device="cpu",
+                                    fake_predict=anatomy.fake_predict_factory(), **kw)
+    cpu_s = time.perf_counter() - t0
+    files = sorted(p.name for p in (root / "gpu").iterdir())
+    masks = [n for n in files if n.endswith(".nii.gz")]
+    same_masks = [n for n in masks
+                  if (root / "gpu" / n).read_bytes() == (root / "cpu" / n).read_bytes()]
+    rad = json.loads((root / "gpu" / "statistics_radiomics.json").read_text())
+    rad_cpu = json.loads((root / "cpu" / "statistics_radiomics.json").read_text())
+    counts_equal = all(rad[k].get("voxels") == rad_cpu[k].get("voxels") for k in rad_cpu)
+    rad_rel = _json_max_rel(rad, rad_cpu)
+    stats_file = json.loads((root / "gpu" / "statistics.json").read_text())
+    stats_cpu_file = json.loads((root / "cpu" / "statistics.json").read_text())
+    volumes_equal = all(stats_file[k]["volume"] == stats_cpu_file[k]["volume"]
+                        for k in stats_cpu_file) and list(stats_file) == list(stats_cpu_file)
+    hu_err = max(abs(stats_file[k]["intensity"] - stats_cpu_file[k]["intensity"])
+                 for k in stats_cpu_file)
+    same_png = (root / "gpu" / "preview_total.png").read_bytes() == \
+        (root / "cpu" / "preview_total.png").read_bytes()
+    res["nifti"] = {
+        "shape": list(STUDY_SHAPE), "sec": sec, "cpu_s": cpu_s, "peak_mem_gib": peak,
+        "spans": spans,
+        "stages": {k: spans.get(k) for k in ("predict", "statistics", "radiomics_histogram",
+                                             "radiomics_shape", "save_nifti",
+                                             "preview_fronts", "preview_render")},
+        "tiles": spans["tiles"], "launches": got, "masks": len(masks),
+        "masks_identical": len(same_masks), "stats_volumes_equal": volumes_equal,
+        "stats_max_hu_err": hu_err, "radiomics_counts_equal": counts_equal,
+        "radiomics_max_rel": rad_rel, "preview_identical": same_png,
+        "classes_present": sum(1 for v in rad.values() if v.get("present")),
+        "stats_returned_equal_file": stats == stats_file,
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "api", "part": "nifti", **res["nifti"]})
+    assert got == _want_launches(spans["tiles"]), got
+    assert len(masks) == 117 and len(same_masks) == len(masks), (len(masks), len(same_masks))
+    assert volumes_equal and hu_err <= 1e-3, hu_err
+    assert counts_equal and rad_rel <= 1e-9, rad_rel
+    assert same_png and res["nifti"]["classes_present"] > 20
+    assert stats_cpu == stats_cpu_file
+    shutil.rmtree(root / "cpu")
+    shutil.rmtree(root / "gpu")
+
+    # --- (b) DICOM in, DICOM out
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    del ct
+    dicom_io.write_ct_series(nifti.NiftiImage(data=anatomy.synth_ct((512, 512, 64), spacing),
+                                              affine=np.diag([*spacing, 1.0])),
+                             root / "series")
+    series_write_s = time.perf_counter() - t0
+    types = ["nifti", "dicom_seg", "dicom_rtstruct"]
+    spans = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    totalsegmentator(root / "series", root / "dcm_gpu", task="total", fast=True, ml=True,
+                     output_type=types, fake_predict=real_hook(), store=store, spans=spans)
+    sec = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    totalsegmentator(root / "series", root / "dcm_cpu", task="total", fast=True, ml=True,
+                     output_type=types, fake_predict=anatomy.fake_predict_factory(),
+                     store=store, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    out, out_cpu = root / "dcm_gpu", root / "dcm_cpu"
+    labels_img = nifti.load(out / "total_segmentation.nii.gz")
+    labels = np.asarray(labels_img.data)
+    label_map = labels_img.get_label_map()
+    seg_ds = dicom.dcmread(out / "total_segmentation_seg.dcm")
+    back, seg_names = dicom_seg.read_seg_labelmap(seg_ds)
+    present = sorted(int(v) for v in np.unique(labels) if v and int(v) in label_map)
+    expect = np.zeros(labels.shape, np.uint16)
+    for i, lb in enumerate(present, start=1):
+        expect[labels == lb] = i
+    zs = np.flatnonzero(expect.any(axis=(0, 1)))
+    seg_equal = back.shape == expect[:, :, zs].shape and \
+        bool(np.array_equal(back, expect[:, :, zs]))
+    _, headers = dicom_io.sorted_series_headers(root / "series")
+    rt = dicom.dcmread(out / "total_segmentation_rtstruct.dcm")
+    rt_checks = _rtstruct_checks(rt, labels, label_map, headers)
+    _same_dicom(seg_ds, dicom.dcmread(out_cpu / "total_segmentation_seg.dcm"))
+    _same_dicom(rt, dicom.dcmread(out_cpu / "total_segmentation_rtstruct.dcm"))
+    nifti_same = (out / "total_segmentation.nii.gz").read_bytes() == \
+        (out_cpu / "total_segmentation.nii.gz").read_bytes()
+    res["dicom"] = {
+        "shape": list(labels.shape), "sec": sec, "cpu_s": cpu_s, "peak_mem_gib": peak,
+        "series_write_s": series_write_s, "spans": spans,
+        "writers_s": {k: spans.get(k) for k in ("save_nifti", "save_dicom_seg",
+                                                "save_dicom_rtstruct", "contours")},
+        "tiles": spans["tiles"], "launches": got, "segments": len(seg_names),
+        "seg_frames": int(seg_ds.NumberOfFrames),
+        "seg_bytes": (out / "total_segmentation_seg.dcm").stat().st_size,
+        "rtstruct_bytes": (out / "total_segmentation_rtstruct.dcm").stat().st_size,
+        "seg_equal_nifti": seg_equal, "nifti_identical_cpu": nifti_same, **rt_checks,
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "api", "part": "dicom", **res["dicom"]})
+    assert got == _want_launches(spans["tiles"]), got
+    assert seg_equal and nifti_same and len(seg_names) == len(present) > 10
+
+    # --- (c) --radiomics through the CLI and the anatomy hook. The phantom's
+    # lungs hold no fat, so ct_pfav.nii.gz is empty on fine grids and the
+    # radiomics pass raises on it, as the reference's does (ROADMAP Queue 3);
+    # on this coarse grid the nearest back-resample puts lung labels on fat
+    t_part = time.perf_counter()
+    small, small_sp = (96, 96, 32), (3.5, 3.5, 9.0)
+    nifti.save(nifti.NiftiImage(data=anatomy.synth_ct(small, small_sp),
+                                affine=np.diag([*small_sp, 1.0])), root / "small.nii.gz")
+    env_before = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(_cli_env(BOA_TEST_ANATOMY="1", SKIP_CONTRAST_INFORMATION="1",
+                               BOA_TPU_CONFIG_DIR=str(root / "cfg")))
+    try:
+        reset()
+        t0 = time.perf_counter()
+        cli.run(["-i", str(root / "small.nii.gz"), "-o", str(root / "cli"), "-m", "total",
+                 "--fast-total", "--radiomics"])
+        sec = time.perf_counter() - t0
+    finally:
+        os.environ.clear()
+        os.environ.update(env_before)
+    rad = json.loads((root / "cli" / "statistics_radiomics.json").read_text())
+    res["cli"] = {"shape": list(small), "sec": sec, "files": sorted(rad),
+                  "total_present": sum(1 for v in rad["total"].values() if v.get("present")),
+                  "launches": counts(), "part_s": time.perf_counter() - t_part}
+    emit({"phase": "api", "part": "cli", **res["cli"]})
+    assert sorted(rad) == ["ct_pfav", "total"] and res["cli"]["total_present"] > 20
+    tmp_dir.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "api", "part": "done", "phase_s": res["phase_s"],
+          "checkpoint_loads": store.loads})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -2271,13 +2578,14 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study, total, bca, cli) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total, bca, cli, api) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
             summary.append(dict(_row(name, fused_cases, fused_cases, fused["launches"]),
                                 finish_launches=fused["finish_launches"],
-                                launches_cli=cli["study"]["launches"][name]))
+                                launches_cli=cli["study"]["launches"][name],
+                                launches_api=api["nifti"]["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -2293,6 +2601,7 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli) -> list[dict]:
         row["launches_total"] = total["study"]["launches"][name]
         row["launches_bca"] = bca["study"]["launches"][name]
         row["launches_cli"] = cli["study"]["launches"][name]
+        row["launches_api"] = api["nifti"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -2347,8 +2656,10 @@ def main() -> int:
         phase_dicom(torch, rc, pc)
     if "render" in phases:
         phase_render(torch, rc, pc)
+    if "api" in phases:
+        api = phase_api(torch, rc, pc)
     if phases == ALL_PHASES:
-        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli)})
+        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,7 +21,12 @@ for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
     importlib.import_module(m.name)
 banned = ("jax", "jaxlib", "boa_tpu", "pandas", "cv2", "matplotlib")
 bad = [k for k in sys.modules if k.split(".")[0] in banned]
-front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"}
+front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands",
+         "boa_tpu_torch.python_api", "boa_tpu_torch.measure.radiomics",
+         "boa_tpu_torch.measure.shape", "boa_tpu_torch.io.dicom_seg",
+         "boa_tpu_torch.io.rtstruct", "boa_tpu_torch.compute.geometry",
+         "boa_tpu_torch.tools.total_segmentator", "boa_tpu_torch.tools.combine_masks",
+         "boa_tpu_torch.tools.set_license", "boa_tpu_torch.tools.setup_manually"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -30,7 +35,9 @@ sys.exit(1 if bad or not front <= set(sys.modules) else 0)
 
 def test_import_loads_no_jax_and_no_reference_package():
     """The walk imports every module, the front door's (cli, __main__,
-    commands) among them."""
+    commands) and the TotalSegmentator API's (python_api, radiomics, shape,
+    the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) among
+    them."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -97,6 +104,10 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
                      affine=np.diag([3.0, 3.0, 3.0, 1.0]))
     with pytest.raises(RuntimeError, match="CUDA"):
         predict_image(img, "total", ModelStore(tmp_path), fast=True)
+    from boa_tpu_torch.python_api import totalsegmentator
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        totalsegmentator(img, None, task="total", fast=True, store=ModelStore(tmp_path))
     # the CPU only when asked for
     assert PlainConvUNet(cfg, device="cpu").seg_heads[0].weight.device.type == "cpu"
     pred = Predictor(plans=plans, fold_params=[params], device="cpu")
