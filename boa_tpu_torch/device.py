@@ -29,3 +29,15 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def named_device(device: str) -> torch.device:
+    """The torch device of a user-facing device name: "gpu", "cuda",
+    "gpu:N" and "cuda:N" are the card (RuntimeError without CUDA), "cpu"
+    the host; anything else raises ValueError."""
+    name = str(device)
+    kind, _, index = name.partition(":")
+    if kind not in ("gpu", "cuda", "cpu") or (index and (kind == "cpu"
+                                                         or not index.isdigit())):
+        raise ValueError(f"unsupported device {device!r}: use 'gpu', 'gpu:N' or 'cpu'")
+    return resolve_device("cpu" if kind == "cpu" else "cuda" + (f":{index}" if index else ""))

@@ -27,7 +27,7 @@ import torch
 
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.inference.predictor import Predictor, load_stacked_cached
-from boa_tpu_torch.io import nifti
+from boa_tpu_torch.io import nifti, npz
 from boa_tpu_torch.io.nifti import NiftiImage
 from boa_tpu_torch.measure.statistics import get_basic_statistics
 from boa_tpu_torch.ops import cropping, packing
@@ -453,7 +453,7 @@ def _save_probabilities(probs: np.ndarray, path: Path, spacing) -> None:
     spacing and the model-grid shape."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, probabilities=np.asarray(probs, np.float16))
+    npz.savez_compressed(path, probabilities=np.asarray(probs, np.float16))
     props = {"spacing": tuple(float(s) for s in spacing[::-1]),
              "shape_after_cropping_and_before_resampling":
                  tuple(int(n) for n in probs.shape[1:])}

@@ -15,6 +15,11 @@ normalize each channel, and then one of two paths.
   probabilities.
 
 Either way the labels go back into the uncropped grid.
+
+A 2d configuration (a 2-element patch) runs its per-slice net on the whole
+slice stack: the "tile" spans the full z extent, the Gaussian is in-plane
+and flat over z, the resample is in-plane only (no separate z) and the
+output has the input's shape, as in the reference.
 """
 
 from __future__ import annotations
@@ -186,10 +191,8 @@ class Predictor:
     device: object = None
 
     def __post_init__(self) -> None:
-        if len(self.plans.patch_size) == 2:
-            raise NotImplementedError("2d configurations wait for M2 (the other "
-                                      "U-Net forwards)")
         self.cfg: ArchConfig = self.plans.arch_config()
+        self.two_d = len(self.plans.patch_size) == 2
         self.device = resolve_device(self.device)
         self._dtype = _DTYPES[self.compute_dtype]
         if self.models is None:
@@ -212,9 +215,21 @@ class Predictor:
         self.accum_used = self._accum(padded_shape)
         return self.accum_used
 
-    def _gauss(self, patch) -> np.ndarray:
-        return (pp.gaussian_importance_map(patch) if self.use_gaussian
-                else np.ones(patch, np.float32))
+    def _patch3(self, spatial) -> tuple[int, int, int]:
+        """The tile: the plan's patch, or for a 2d plan its in-plane patch
+        over the whole z extent."""
+        p = tuple(self.plans.patch_size_xyz)
+        return p if not self.two_d else (p[0], p[1], int(spatial[2]))
+
+    def _gauss(self, patch) -> torch.Tensor:
+        """Fusion weights of one tile on the device; for a 2d plan the
+        in-plane Gaussian broadcast (not copied) over z."""
+        if not self.use_gaussian:
+            return torch.ones(patch, dtype=torch.float32, device=self.device)
+        if not self.two_d:
+            return torch.as_tensor(pp.gaussian_importance_map(patch), device=self.device)
+        g2 = pp.gaussian_importance_map((patch[0], patch[1], 1))
+        return torch.as_tensor(g2, device=self.device).expand(patch)
 
     def _with_fp16_retry(self, run, shape):
         """run(); on a device out-of-memory error with float32 accumulators,
@@ -239,7 +254,7 @@ class Predictor:
         accumulator dtype, of an already-normalized (C, X, Y, Z) volume."""
         vol = torch.as_tensor(vol_cxyz).to(self.device, torch.float32)
         spatial = tuple(vol.shape[-3:])
-        patch = tuple(self.plans.patch_size_xyz)
+        patch = self._patch3(spatial)
         pads = _pads(spatial, patch, self.bucket)
         vol = _pad(vol, pads)
         padded = tuple(vol.shape[-3:])
@@ -256,7 +271,7 @@ class Predictor:
     def _predict_seg_fused(self, dev: torch.Tensor, schemes) -> torch.Tensor:
         """(C, X, Y, Z) raw volume on the plan grid -> label volume."""
         spatial = tuple(dev.shape[-3:])
-        patch = tuple(self.plans.patch_size_xyz)
+        patch = self._patch3(spatial)
         pads = _pads(spatial, patch, self.bucket)
         padded = tuple(n + a + b for n, (a, b) in zip(spatial, pads))
         starts = pp.tile_starts(padded, patch, self.tile_step_size)
@@ -322,7 +337,10 @@ class Predictor:
         shape0 = tuple(dev.shape[-3:])
         schemes = tuple((self.plans.normalization_schemes * n_ch)[:n_ch])
         cur_sp = np.array(spacing_xyz, dtype=np.float64)
-        tgt_sp = np.array(self.plans.spacing_xyz, dtype=np.float64)
+        plan_sp = tuple(self.plans.spacing_xyz)
+        if self.two_d:  # in-plane only: z stays native
+            plan_sp = (plan_sp[0], plan_sp[1], float(spacing_xyz[2]))
+        tgt_sp = np.array(plan_sp, dtype=np.float64)
         new_shape = tuple(rs.compute_new_shape(shape0, cur_sp, tgt_sp))
         n_cls = self.cfg.num_classes
         dt = torch.uint8 if n_cls <= 255 else torch.int32
@@ -342,7 +360,8 @@ class Predictor:
             #    order 0 along z when anisotropic)
             props = [self.plans.channel_intensity_properties(c) for c in range(n_ch)]
             v = _normalize(dev, props, schemes)
-            do_sep, axis = determine_separate_z(cur_sp, tgt_sp)
+            do_sep, axis = ((False, None) if self.two_d
+                            else determine_separate_z(cur_sp, tgt_sp))
             sep_z = 0 if (do_sep and axis == 2) else None
             resampled = new_shape != shape0
             if resampled:

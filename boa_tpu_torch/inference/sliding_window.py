@@ -66,7 +66,7 @@ def tiles_pred(models, vol: torch.Tensor, starts_tb, gauss_w: torch.Tensor,
 
 @torch.no_grad()
 def sliding_window_logits(models, vol: torch.Tensor, starts: np.ndarray,
-                          gaussian: np.ndarray, num_classes: int, mirror_axes=(),
+                          gaussian, num_classes: int, mirror_axes=(),
                           compute_dtype=torch.bfloat16,
                           accum_dtype=torch.float16) -> torch.Tensor:
     """Gaussian-weight-normalized fused logits, (classes, X, Y, Z) in
@@ -76,7 +76,8 @@ def sliding_window_logits(models, vol: torch.Tensor, starts: np.ndarray,
     in float32 and rounded once; the division runs in float32 and rounds
     back, one x-slab at a time (no float32 copy of the whole volume). In
     float16, tile-corner weights are subnormal and can underflow to 0, as
-    in the reference."""
+    in the reference. `gaussian`: the tile's (px, py, pz) weights, numpy or
+    a tensor (a 2d plan's is an expanded view)."""
     spatial = tuple(vol.shape[-3:])
     px, py, pz = gaussian.shape
     g = torch.as_tensor(gaussian, dtype=torch.float32, device=vol.device)
@@ -98,7 +99,7 @@ def sliding_window_logits(models, vol: torch.Tensor, starts: np.ndarray,
 
 @torch.no_grad()
 def sliding_window_seg_chunked(models, vol: torch.Tensor, starts: np.ndarray,
-                               gaussian: np.ndarray, num_classes: int,
+                               gaussian, num_classes: int,
                                mirror_axes=(), compute_dtype=torch.bfloat16,
                                accum_dtype=torch.float16, seg_dtype=torch.uint8,
                                revert=None, tile_batch: int = 1) -> torch.Tensor:

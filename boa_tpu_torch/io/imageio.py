@@ -13,7 +13,7 @@ from typing import Any, Protocol
 
 import numpy as np
 
-from boa_tpu_torch.io import nifti
+from boa_tpu_torch.io import nifti, npz
 
 
 class ImageIO(Protocol):
@@ -64,8 +64,8 @@ class NpyIO:
     def write(self, img: nifti.NiftiImage, path: Path) -> None:
         path = Path(path)
         if path.suffix == ".npz":
-            np.savez_compressed(path, data=np.asarray(img.data),
-                                affine=img.affine)
+            npz.savez_compressed(path, data=np.asarray(img.data),
+                                 affine=np.asarray(img.affine))
         else:
             np.save(path, np.asarray(img.data))
 

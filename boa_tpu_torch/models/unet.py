@@ -1,10 +1,19 @@
-"""PlainConvUNet inference in PyTorch, with the row-conv composite forward.
+"""nnU-Net U-Net inference in PyTorch, with the row-conv composite forward.
 
 Counterpart of `boa_tpu/models/unet.py` (`ArchConfig`,
-`arch_config_from_plans`, the plain-encoder branch of `unet_forward`,
-`_rowconv_forward`, `unet_infer`). Public layout as in the reference: the
-network takes (N, X, Y, Z, C) and returns (N, X, Y, Z, num_classes); the
-eager layers run on torch's (N, C, X, Y, Z) with (X, Y, Z) as (D, H, W).
+`arch_config_from_plans`, `unet_forward`, `_rowconv_forward`,
+`unet_infer`). Public layout as in the reference: the network takes
+(N, X, Y, Z, C) and returns (N, X, Y, Z, num_classes); the eager layers run
+on torch's (N, C, X, Y, Z) with (X, Y, Z) as (D, H, W).
+
+Both of nnU-Net's encoder families: `PlainConvUNet` (conv blocks) and
+`ResidualEncoderUNet` (a stem conv block, then BasicBlockD residual blocks:
+conv1 -> conv2 without its nonlinearity, plus the skip, a strided 1x1x1
+conv + instance norm where the stride or the width changes; `make_unet`
+picks the class). A 2d configuration runs as a 3d net with (k, k, 1)
+kernels and strides and per-slice instance-norm statistics (InstanceNorm2d).
+With `cfg.deep_supervision`, `forward(x, all_heads=True)` returns one head
+per decoder stage, highest resolution first.
 
 Two forwards:
 
@@ -16,10 +25,9 @@ Two forwards:
   boundary, the last upsample and the last decoder stage run on the
   row-conv kernels of `ops/rowconv.py`, whose fused sums give the instance
   norm statistics, so the normalized 128^3 activations never reach device
-  memory; the interior stages (64^3 and below) stay eager.
-
-Residual encoders, 2d configurations and deep-supervision heads are not
-ported yet.
+  memory; the interior stages (64^3 and below) stay eager. Residual and
+  2d configurations never take it (the reference's rule), and neither do
+  the deep-supervision heads.
 """
 
 from __future__ import annotations
@@ -116,11 +124,13 @@ def _lrelu(x: torch.Tensor, slope: float) -> torch.Tensor:
                                                    device=x.device))
 
 
-def instance_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    """InstanceNorm3d on (N, C, X, Y, Z): fp32 statistics, biased variance."""
+def instance_norm(x: torch.Tensor, scale, bias, eps: float,
+                  dims: tuple[int, ...] = (2, 3, 4)) -> torch.Tensor:
+    """InstanceNorm3d on (N, C, X, Y, Z): fp32 statistics, biased variance,
+    reduced over `dims` (the in-plane (2, 3) alone for a 2d configuration)."""
     xf = x.float()
-    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-    var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
     out = (xf - mean) * torch.rsqrt(var + eps)
     if scale is not None:
         out = out * scale.float()[None, :, None, None, None]
@@ -129,23 +139,53 @@ def instance_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _in_dims(cfg: ArchConfig) -> tuple[int, ...]:
+    """Instance-norm reduction dims of (N, C, X, Y, Z): the volume, or the
+    slice for a 2d configuration (the reference's `_in_axes`)."""
+    return (2, 3) if cfg.two_d else (2, 3, 4)
+
+
 class ConvBlock(nn.Module):
-    """Conv3d -> InstanceNorm3d(affine) -> LeakyReLU."""
+    """Conv3d -> InstanceNorm3d(affine) -> LeakyReLU (no LeakyReLU with
+    `nonlin=False`: BasicBlockD's conv2 and skip)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride, cfg: ArchConfig,
-                 device=None):
+                 device=None, nonlin: bool = True):
         super().__init__()
         self.conv = nn.Conv3d(cin, cout, tuple(kernel), tuple(stride),
                               padding=tuple((k - 1) // 2 for k in kernel),
                               bias=cfg.conv_bias, device=device)
         self.norm = nn.InstanceNorm3d(cout, eps=cfg.norm_eps,
                                       affine=cfg.norm_affine, device=device)
-        self.slope = cfg.nonlin_slope
+        self.slope = cfg.nonlin_slope if nonlin else None
+        self.dims = _in_dims(cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
-        x = instance_norm(x, self.norm.weight, self.norm.bias, self.norm.eps)
-        return _lrelu(x, self.slope)
+        x = instance_norm(x, self.norm.weight, self.norm.bias, self.norm.eps,
+                          self.dims)
+        return x if self.slope is None else _lrelu(x, self.slope)
+
+
+class BasicBlockD(nn.Module):
+    """The residual encoder's block: LeakyReLU(conv2(conv1(x)) + skip(x)),
+    skip a strided 1x1x1 conv + instance norm where the stride or the width
+    changes, else the identity (reference `unet.py:_encoder_forward`)."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride, cfg: ArchConfig,
+                 device=None):
+        super().__init__()
+        self.conv1 = ConvBlock(cin, cout, kernel, stride, cfg, device)
+        self.conv2 = ConvBlock(cout, cout, kernel, (1, 1, 1), cfg, device,
+                               nonlin=False)
+        self.skip = (ConvBlock(cin, cout, (1, 1, 1), stride, cfg, device,
+                               nonlin=False)
+                     if any(s != 1 for s in stride) or cin != cout else None)
+        self.slope = cfg.nonlin_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(self.conv1(x))
+        return _lrelu(y + (x if self.skip is None else self.skip(x)), self.slope)
 
 
 class DecoderStage(nn.Module):
@@ -164,29 +204,18 @@ class DecoderStage(nn.Module):
 
 
 class PlainConvUNet(nn.Module):
-    """nnU-Net PlainConvUNet, inference head only; built on `device`
+    """nnU-Net PlainConvUNet, inference heads only; built on `device`
     (default the card)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.residual_encoder or cfg.two_d or cfg.deep_supervision:
-            raise NotImplementedError(
-                "residual encoders, 2d configurations and deep-supervision "
-                "heads are not ported yet")
+        if cfg.residual_encoder != isinstance(self, ResidualEncoderUNet):
+            raise ValueError(f"{type(self).__name__} does not build "
+                             f"residual_encoder={cfg.residual_encoder}: use "
+                             f"make_unet")
         device = resolve_device(device)
         self.cfg = cfg
-        enc = []
-        c_in = cfg.input_channels
-        for s in range(cfg.n_stages):
-            c_out = cfg.features_per_stage[s]
-            stage = []
-            for b in range(cfg.n_conv_per_stage[s]):
-                stride = cfg.strides[s] if b == 0 else (1, 1, 1)
-                stage.append(ConvBlock(c_in, c_out, cfg.kernel_sizes[s],
-                                       stride, cfg, device))
-                c_in = c_out
-            enc.append(nn.ModuleList(stage))
-        self.encoder = nn.ModuleList(enc)
+        self.encoder = self._build_encoder(cfg, device)
         dec, heads = [], []
         for s in range(cfg.n_stages - 1, 0, -1):
             c_skip = cfg.features_per_stage[s - 1]
@@ -200,31 +229,92 @@ class PlainConvUNet(nn.Module):
         self.decoder = nn.ModuleList(dec)
         self.seg_heads = nn.ModuleList(heads)
 
-    def forward(self, x: torch.Tensor, ops: rc.RowOps = rc.KERNELS
-                ) -> torch.Tensor:
-        """(N, X, Y, Z, C) -> logits (N, X, Y, Z, num_classes).
+    @staticmethod
+    def _build_encoder(cfg: ArchConfig, device) -> nn.ModuleList:
+        enc = []
+        c_in = cfg.input_channels
+        for s in range(cfg.n_stages):
+            c_out = cfg.features_per_stage[s]
+            stage = []
+            for b in range(cfg.n_conv_per_stage[s]):
+                stride = cfg.strides[s] if b == 0 else (1, 1, 1)
+                stage.append(ConvBlock(c_in, c_out, cfg.kernel_sizes[s],
+                                       stride, cfg, device))
+                c_in = c_out
+            enc.append(nn.ModuleList(stage))
+        return nn.ModuleList(enc)
+
+    def forward(self, x: torch.Tensor, ops: rc.RowOps = rc.KERNELS,
+                all_heads: bool = False):
+        """(N, X, Y, Z, C) -> logits (N, X, Y, Z, num_classes), or with
+        `all_heads` on a deep-supervision config the list of every decoder
+        stage's logits, highest resolution first.
 
         bf16 input on a qualifying geometry takes the row-conv composite
         (`ops` selects its three functions: the kernel wrappers, or the plain
         versions as a yardstick); everything else runs eager."""
-        if x.dtype == torch.bfloat16 and _rowconv_eligible(self.cfg, x.shape):
+        if (not all_heads and x.dtype == torch.bfloat16
+                and _rowconv_eligible(self.cfg, x.shape)):
             return _rowconv_forward(self, x, ops)
-        return self.forward_eager(x)
+        return self.forward_eager(x, all_heads)
 
-    def forward_eager(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.permute(0, 4, 1, 2, 3)
+    def _encode(self, h: torch.Tensor) -> list[torch.Tensor]:
         skips = []
         for stage in self.encoder:
             for blk in stage:
                 h = blk(h)
             skips.append(h)
+        return skips
+
+    def forward_eager(self, x: torch.Tensor, all_heads: bool = False):
+        skips = self._encode(x.permute(0, 4, 1, 2, 3))
         y = skips[-1]
         n = self.cfg.n_stages
+        every = self.cfg.deep_supervision and all_heads
+        outs = []
         for i, st in enumerate(self.decoder):
             y = torch.cat([st.transp(y), skips[n - 2 - i]], dim=1)
             for blk in st.convs:
                 y = blk(y)
-        return self.seg_heads[-1](y).permute(0, 2, 3, 4, 1)
+            if every or i == len(self.decoder) - 1:
+                outs.append(self.seg_heads[i](y).permute(0, 2, 3, 4, 1))
+        return outs[::-1] if every else outs[-1]
+
+
+class ResidualEncoderUNet(PlainConvUNet):
+    """nnU-Net ResidualEncoderUNet: a stem conv block, then
+    `n_blocks_per_stage` BasicBlockD per stage (the first at the stage's
+    stride); the decoder is PlainConvUNet's."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.stem = ConvBlock(cfg.input_channels, cfg.features_per_stage[0],
+                              cfg.kernel_sizes[0], (1, 1, 1), cfg,
+                              self.seg_heads[0].weight.device)
+
+    @staticmethod
+    def _build_encoder(cfg: ArchConfig, device) -> nn.ModuleList:
+        enc = []
+        c_in = cfg.features_per_stage[0]
+        for s in range(cfg.n_stages):
+            c_out = cfg.features_per_stage[s]
+            stage = []
+            for b in range((cfg.n_blocks_per_stage or cfg.n_conv_per_stage)[s]):
+                stride = cfg.strides[s] if b == 0 else (1, 1, 1)
+                stage.append(BasicBlockD(c_in, c_out, cfg.kernel_sizes[s],
+                                         stride, cfg, device))
+                c_in = c_out
+            enc.append(nn.ModuleList(stage))
+        return nn.ModuleList(enc)
+
+    def _encode(self, h: torch.Tensor) -> list[torch.Tensor]:
+        return super()._encode(self.stem(h))
+
+
+def make_unet(cfg: ArchConfig, device=None) -> PlainConvUNet:
+    """The network class of `cfg`'s encoder family, on `device`."""
+    cls = ResidualEncoderUNet if cfg.residual_encoder else PlainConvUNet
+    return cls(cfg, device)
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +323,14 @@ class PlainConvUNet(nn.Module):
 
 
 def _rowconv_eligible(cfg: ArchConfig, shape) -> bool:
-    """Stage 0 and the last decoder stage are two 3x3x3 convs each, the
-    first boundary is a 3x3x3 stride-2 conv, the first two stages are no
-    wider than the stride-2 kernel's cout, and the tile has even extents. (The
-    reference also asks for Y == 128 lanes and a batch of one, which were
-    TPU constraints.)"""
+    """A plain 3d encoder (never residual or 2d, as the reference), stage 0
+    and the last decoder stage two 3x3x3 convs each, the first boundary a
+    3x3x3 stride-2 conv, the first two stages no wider than the stride-2
+    kernel's cout, and even tile extents. (The reference also asks for
+    Y == 128 lanes and a batch of one, which were TPU constraints.)"""
     _, X, Y, Z, _ = shape
-    return (cfg.n_stages >= 2
+    return (not cfg.residual_encoder and not cfg.two_d
+            and cfg.n_stages >= 2
             and max(cfg.features_per_stage[:2]) <= rc.CONV_MAX_COUT
             and cfg.kernel_sizes[0] == (3, 3, 3)
             and cfg.kernel_sizes[1] == (3, 3, 3)

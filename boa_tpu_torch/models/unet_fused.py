@@ -90,7 +90,7 @@ def unet_forward_fused(model: PlainConvUNet, packed: dict, x: torch.Tensor,
     x's dtype (the model's parameters must share it). `conv` is the kernel
     wrapper, or `pc.conv3d_in_act_plain` as a yardstick."""
     cfg = model.cfg
-    assert not cfg.residual_encoder, "fused path covers PlainConvUNet"
+    assert not (cfg.residual_encoder or cfg.two_d), "fused path covers the 3d PlainConvUNet"
     slope = cfg.nonlin_slope
     x_raw, norm = x, None
     skips: list[tuple[torch.Tensor, pc.NormAct | None]] = []

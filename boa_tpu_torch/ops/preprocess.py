@@ -1,4 +1,5 @@
-"""Preprocessing: nonzero bbox, CT / z-score normalization, tile grid,
+"""Preprocessing: nonzero bbox (host `nonzero_bbox`, device `bbox_array`),
+CT / z-score normalization, tile grid,
 Gaussian fusion weights.
 
 Counterpart of `boa_tpu/ops/preprocess.py`. The tile grid and the Gaussian
@@ -11,6 +12,19 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def nonzero_bbox(vol: np.ndarray) -> tuple[tuple[int, int], ...]:
+    """(start, stop) per axis of the nonzero region of the last 3 axes of a
+    host (X, Y, Z) or (C, X, Y, Z) volume (nnU-Net's create_nonzero_mask
+    box); the full extent when the volume is all zero."""
+    v = np.asarray(vol)
+    nz = (v != 0).any(axis=0) if v.ndim == 4 else v != 0
+    out = []
+    for ax in range(3):
+        idx = np.flatnonzero(nz.any(axis=tuple(i for i in range(3) if i != ax)))
+        out.append((int(idx[0]), int(idx[-1]) + 1) if idx.size else (0, nz.shape[ax]))
+    return tuple(out)
 
 
 def bbox_array(vol: torch.Tensor) -> np.ndarray:

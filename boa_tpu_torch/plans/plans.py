@@ -131,11 +131,12 @@ class ModelPlans:
     def use_mask_for_norm(self) -> list[bool]:
         return list(self.conf.get("use_mask_for_norm", [False]))
 
-    def arch_config(self) -> ArchConfig:
+    def arch_config(self, deep_supervision: bool = False) -> ArchConfig:
         return arch_config_from_plans(
             self.conf["architecture"],
             num_classes=self.num_segmentation_heads,
-            input_channels=self.num_input_channels)
+            input_channels=self.num_input_channels,
+            deep_supervision=deep_supervision)
 
     @classmethod
     def from_model_folder(cls, folder: str | Path,

@@ -25,9 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from boa_tpu_torch.device import resolve_device
+from boa_tpu_torch.device import named_device
 from boa_tpu_torch.io import nifti
 from boa_tpu_torch.io.nifti import NiftiImage
 from boa_tpu_torch.tasks import class_maps
@@ -36,18 +35,6 @@ from boa_tpu_torch.utils.timing import Spans
 from boa_tpu_torch.weights.store import ModelStore
 
 logger = logging.getLogger(__name__)
-
-
-def api_device(device: str) -> torch.device:
-    """The torch device of `totalsegmentator(device=...)`: "gpu", "cuda",
-    "gpu:N" and "cuda:N" are the card (RuntimeError without CUDA), "cpu"
-    the host; anything else raises ValueError."""
-    name = str(device)
-    kind, _, index = name.partition(":")
-    if kind not in ("gpu", "cuda", "cpu") or (index and (kind == "cpu"
-                                                         or not index.isdigit())):
-        raise ValueError(f"unsupported device {device!r}: use 'gpu', 'gpu:N' or 'cpu'")
-    return resolve_device("cpu" if kind == "cpu" else "cuda" + (f":{index}" if index else ""))
 
 
 def show_license_info() -> None:
@@ -192,7 +179,7 @@ def totalsegmentator(
     for ot in output_types:
         if ot not in ("nifti", "dicom_seg", "dicom_rtstruct"):
             raise ValueError(f"unsupported output_type {ot!r}")
-    dev = api_device(device)
+    dev = named_device(device)
     is_mr = task.endswith("_mr")
 
     cfg = get_task(task, fast=fast) if not fastest else \

@@ -180,19 +180,52 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               the tracer's seconds, launches tiles x (4, 1, 1); (c) `cli.run
               -m total --fast-total --radiomics` through the anatomy hook on a
               96x96x32 phantom writes statistics_radiomics.json
+13. engine  - the model-folder predictor (`python -m
+              boa_tpu_torch.engine.predict`) on real-format nnU-Net
+              checkpoints (`testing/nnunet_checkpoint.py`) at full width:
+              (a) total_fast's network (6-stage PlainConvUNet 32->320, 118
+              classes, 128^3 patch, 3 mm plan) as a results folder with two
+              `checkpoint_final.pth` folds, one 224x192x160 case at 3 mm,
+              nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
+              --save_probabilities`: the conversion's, the cached .npz load's,
+              the predict's and the export's seconds, peak memory; 24 network
+              forwards (12 tiles x 2 folds, the 8 flips of a tile as one
+              batch: 192 evaluations) counted from the model's side, K1/K2/K3
+              launches (4, 1, 1) per forward with the split plan's finishing
+              passes, no K5; the labels an argmax of the .npz (differences
+              only at float16 ties, counted); the folder again without
+              probabilities, twice, then imported into a store
+              (`import_torch_model_folder`: the same parameters bit for bit)
+              and `-d 297` run as a subprocess: labels within 1e-4 of the
+              folder's, with the voxel counts of -d vs -m and of the two -m
+              runs (the kernels' sums are atomic, so runs round apart at a few
+              voxels); `-m` and `-d` again in this process with the network
+              on the plain composite (no kernel launch): labels byte-identical;
+              the kernel composite against the plain one on the batch the
+              path sends, the case's first tile and its 7 flips: each
+              sample's argmax > 0.99 and its largest logit error <= 2e-2 of
+              its largest logit, and the plain composite run twice bit-equal
+              (whether the kernels' is, printed). (b) nnU-Net's ResEnc M
+              layout (6 stages 32->320, blocks (1, 3, 4, 6, 6, 6), one-conv
+              decoder) on one 128^3 case and (c) an 8-stage 2d net (32->512,
+              512x512 patch, 0.8 mm) on a 512x512x24 slice stack: one fold, no
+              TTA, eager bf16 (no row-conv launch), labels against a float32
+              Predictor on the card > 0.99, seconds, peak memory, the bf16 and
+              fp32 forward's ms
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render, api) only those phases run after the device phase, and the
+dicom, render, api, engine) only those phases run after the device phase, and the
 kernel summary line is left out. Each phase prints one JSON line (the total,
-measure, bca, cli, dicom, render and api phases one per part).
+measure, bca, cli, dicom, render, api and engine phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
-of api (a)) and, last,
+of api (a), `launches_engine` engine (a)'s predict; K5's row has the last
+three too) and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -214,7 +247,7 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render", "api")
+              "dicom", "render", "api", "engine")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -2561,6 +2594,413 @@ def phase_api(torch, rc, pc) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# engine: the model-folder predictor on real-format .pth checkpoints
+# ---------------------------------------------------------------------------
+
+ENGINE_CASE = (224, 192, 160)   # at 3 mm: 12 tiles of 128^3 at step 0.5
+ENGINE_MIRRORS = 8              # nnUNetTrainer's mirror axes (0, 1, 2): 2^3 flips
+RESENC_M = dict(features=(32, 64, 128, 256, 320, 320), blocks=(1, 3, 4, 6, 6, 6))
+TWO_D = dict(features=(32, 64, 128, 256, 512, 512, 512, 512), patch=(512, 512),
+             spacing=(0.8, 0.8), case=(512, 512, 24))
+
+
+def _engine_plans(features, patch, spacing, residual_blocks=None):
+    """plans.json / dataset.json of a 118-class model: PlainConvUNet, or
+    nnU-Net's ResEnc layout (`n_blocks_per_stage`, a one-conv decoder) as
+    the reference's planner writes it; a 2-element patch is a 2d plan."""
+    from boa_tpu_torch.plans.plans import synthetic_plans
+
+    mp = synthetic_plans(num_classes=118, patch_size=(128, 128, 128),
+                         spacing=(3.0, 3.0, 3.0), features=features)
+    conf = mp.plans["configurations"].pop("3d_fullres")
+    n = len(features)
+    kw = conf["architecture"]["arch_kwargs"]
+    conf["patch_size"], conf["spacing"] = list(patch), list(spacing)
+    if len(patch) == 2:
+        kw["kernel_sizes"] = [[3, 3]] * n
+        kw["strides"] = [[1, 1]] + [[2, 2]] * (n - 1)
+    if residual_blocks is not None:
+        conf["architecture"]["network_class_name"] = (
+            "dynamic_network_architectures.architectures.residual_unet.ResidualEncoderUNet")
+        kw["n_blocks_per_stage"] = list(residual_blocks)
+        kw["n_conv_per_stage_decoder"] = [1] * (n - 1)
+        del kw["n_conv_per_stage"]
+    name = "2d" if len(patch) == 2 else "3d_fullres"
+    mp.plans["configurations"][name] = conf
+    return mp.plans, mp.dataset, name
+
+
+def _engine_folder(root, task_id: int, plans: dict, dataset: dict, conf: str,
+                   folds: int, seed: int):
+    """An nnU-Net results folder whose folds hold real-format
+    `checkpoint_final.pth` files (`testing/nnunet_checkpoint.py`) of random
+    weights from `seed` + fold, every fold's last head biased by the same
+    N(0, 3) draw from seed 7 (the bench's trick for coherent labels from
+    random weights; one draw, so that the fold mean keeps its spread)."""
+    from boa_tpu_torch.plans.plans import ModelPlans
+    from boa_tpu_torch.testing.nnunet_checkpoint import save_checkpoint
+    from boa_tpu_torch.weights.store import init_params_numpy
+
+    mdir = root / f"Dataset{task_id:03d}_engine" / f"nnUNetTrainer__nnUNetPlans__{conf}"
+    mdir.mkdir(parents=True)
+    (mdir / "plans.json").write_text(json.dumps(plans))
+    (mdir / "dataset.json").write_text(json.dumps(dataset))
+    cfg = ModelPlans(plans, dataset, conf).arch_config()
+    for f in range(folds):
+        params = init_params_numpy(cfg, seed + f)
+        head = params["seg_heads"][-1]
+        head["b"] = head["b"] + np.random.default_rng(7).normal(
+            0, 3.0, head["b"].shape).astype(np.float32)
+        save_checkpoint(mdir / f"fold_{f}" / "checkpoint_final.pth", params, cfg,
+                        configuration=conf, fold=f, plans=plans, dataset_json=dataset)
+    return mdir, cfg
+
+
+def _leaves(tree) -> list:
+    """The arrays of a parameter pytree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [a for v in tree for a in _leaves(v)]
+    return [tree]
+
+
+def _engine_case(folder, shape, spacing, name="case"):
+    from boa_tpu_torch.io import nifti
+
+    img = _bench_ct(shape, spacing)
+    folder.mkdir(parents=True, exist_ok=True)
+    nifti.save(img, folder / f"{name}_0000.nii.gz")
+    return img
+
+
+def _counting_forwards(calls: list):
+    """Count the network forwards (and the samples each carries) from the
+    model's side while a predict runs: restores the method on exit."""
+    import contextlib
+
+    from boa_tpu_torch.models import unet as tu
+
+    @contextlib.contextmanager
+    def counting():
+        orig = tu.PlainConvUNet.forward
+
+        def forward(self, x, *a, **k):
+            calls.append(int(x.shape[0]))
+            return orig(self, x, *a, **k)
+        tu.PlainConvUNet.forward = forward
+        try:
+            yield
+        finally:
+            tu.PlainConvUNet.forward = orig
+    return counting()
+
+
+def _plain_composite(rc):
+    """Run every row-conv forward on the plain composite (`rc.PLAIN`: the
+    kernels' plain versions, sums in a fixed order) while a predict runs;
+    restores the method on exit."""
+    import contextlib
+
+    from boa_tpu_torch.models import unet as tu
+
+    @contextlib.contextmanager
+    def plain():
+        orig = tu.PlainConvUNet.forward
+
+        def forward(self, x, ops=None, all_heads=False):
+            return orig(self, x, rc.PLAIN, all_heads)
+        tu.PlainConvUNet.forward = forward
+        try:
+            yield
+        finally:
+            tu.PlainConvUNet.forward = orig
+    return plain()
+
+
+def _eager_check(torch, mdir, conf, case_dir, out_dir) -> dict:
+    """`predict_folder` on one fold without TTA in bf16 (eager: no row-conv
+    launch), its seconds and peak memory, against the same case through a
+    float32 Predictor on the card; the bf16 forward's and the fp32 forward's
+    ms on the case's tile."""
+    from boa_tpu_torch.engine import predict as ep
+    from boa_tpu_torch.inference.predictor import Predictor, _normalize
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.models.unet import cast_model
+    from boa_tpu_torch.ops import pallas_conv as pc
+    from boa_tpu_torch.ops import rowconv as rc
+
+    plans, folds = ep.load_model_folder(mdir, [0], configuration=conf)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rc.reset_launches()
+    pc.reset_launches()
+    spans: dict = {}
+    t0 = time.perf_counter()
+    written = ep.predict_folder(case_dir, out_dir, model_dir=mdir, configuration=conf,
+                                folds=[0], disable_tta=True, spans=spans)
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    seg = np.asarray(nifti.load(written[0]).data)
+    img = nifti.load(next(case_dir.glob("*.nii.gz")))
+    fp32 = Predictor(plans=plans, fold_params=folds, compute_dtype="float32",
+                     device="cuda")
+    ref = fp32.predict(np.asarray(img.data), img.zooms)
+    # the forward alone on the case's (only) tile, bf16 and fp32
+    x = _normalize(torch.as_tensor(np.asarray(img.data)[None], dtype=torch.float32,
+                                   device="cuda"),
+                   [plans.channel_intensity_properties(0)], plans.normalization_schemes)
+    x = x.permute(1, 2, 3, 0)[None]
+    model = fp32._cast[0]
+    bf16 = cast_model(model, torch.bfloat16)
+    with torch.no_grad():
+        ms_bf16 = time_ms(torch, lambda: bf16(x.bfloat16()), 3)
+        ms_fp32 = time_ms(torch, lambda: model(x), 2)
+    res = {"shape": list(seg.shape), "tiles": fp32.n_tiles, "sec": sec,
+           "spans": spans, "peak_gib": peak, "launches": launches,
+           "argmax_agree_fp32": float((seg == ref).mean()),
+           "classes_present": int(np.unique(seg).size),
+           "forward_ms_bf16": ms_bf16, "forward_ms_fp32": ms_fp32,
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    del fp32, model, bf16, x
+    torch.cuda.empty_cache()
+    assert seg.shape == tuple(img.data.shape) and res["tiles"] == 1
+    assert all(v == 0 for v in launches.values()), launches
+    if res["argmax_agree_fp32"] <= 0.99:
+        raise AssertionError(f"bf16 against fp32 {res['argmax_agree_fp32']}")
+    return res
+
+
+def phase_engine(torch, rc, pc) -> dict:
+    """The model-folder predictor (`python -m boa_tpu_torch.engine.predict`)
+    on real-format nnU-Net checkpoints at full width, weights random from
+    fixed seeds: (a) total_fast's network (6-stage PlainConvUNet 32->320,
+    118 classes, 128^3 patch, 3 mm plan) as a results folder whose two folds
+    hold `checkpoint_final.pth`, one 224x192x160 case at 3 mm,
+    nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
+    --save_probabilities`: the folds converted (and cached as .npz), the
+    cached load, the predict with its launches (K1/K2/K3 = (4, 1, 1) per
+    network forward, 12 tiles x 2 folds forwards of the 8 flips as one
+    batch: 192 network evaluations), the labels an argmax of the .npz; the
+    folder without probabilities twice in this process, then imported into
+    a store (the same parameters, bit for bit) and `-d` run as a
+    subprocess: labels within 1e-4 of the folder's (two runs of one model
+    differ where the kernels' atomic sums round apart); the kernel
+    composite against the plain composite on one tile. (b) nnU-Net's ResEnc M layout at full width on one 128^3 case and
+    (c) an 8-stage 2d net (32->512, 512x512 patch, 0.8 mm) on a
+    512x512x24 slice stack, both one fold without TTA, eager in bf16:
+    labels against a float32 Predictor on the card > 0.99, seconds, peak
+    memory and the forward's ms."""
+    from boa_tpu_torch.engine import predict as ep
+    from boa_tpu_torch.inference.predictor import _normalize
+    from boa_tpu_torch.inference.sliding_window import mirror_combos
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.models.unet import cast_model
+    from boa_tpu_torch.plans.plans import ModelPlans
+    from boa_tpu_torch.train.variants import get_variant
+    from boa_tpu_torch.weights import convert as cv
+    from boa_tpu_torch.weights.store import ModelStore, import_torch_model_folder
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+    res: dict = {}
+
+    # ---- (a) total_fast's network from .pth, two folds, mirror TTA, K1-K3
+    t0 = time.perf_counter()
+    plans_d, dataset, conf = _engine_plans(TOTAL_FAST_FEATURES, (128, 128, 128),
+                                           (3.0, 3.0, 3.0))
+    mdir, cfg = _engine_folder(root / "results", 297, plans_d, dataset, conf, 2, 0)
+    case_dir = root / "cases"
+    img = _engine_case(case_dir, ENGINE_CASE, (3.0, 3.0, 3.0))
+    write_s = time.perf_counter() - t0
+    pth_mb = sum(p.stat().st_size for p in mdir.glob("fold_*/*.pth")) / 2 ** 20
+    t0 = time.perf_counter()
+    ep.load_model_folder(mdir, [0, 1])                 # .pth -> pytree, .npz cached
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, folds = ep.load_model_folder(mdir, [0, 1])      # the cached .npz
+    npz_load_s = time.perf_counter() - t0
+    argv = ["-i", str(case_dir), "-o", str(root / "preds"), "-m", str(mdir),
+            "-f", "0", "1", "-step_size", "0.5", "--save_probabilities"]
+    calls: list = []
+    spans: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc.reset_launches()
+    pc.reset_launches()
+    t0 = time.perf_counter()
+    with _counting_forwards(calls):
+        # what `python -m boa_tpu_torch.engine.predict <argv>` runs, with spans
+        ep.predict_folder(case_dir, root / "preds", model_dir=mdir, folds=[0, 1],
+                          step_size=0.5, save_probabilities=True, spans=spans)
+    predict_s = time.perf_counter() - t0
+    launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = len(calls)
+    want = _want_launches(fwd, fwd * sum(
+        pc._split_plan(128, 128, 128, cin, 32, pc._sms(torch.device("cuda")), ENGINE_MIRRORS)[0] > 1
+        for cin in (32, 64, 32)))
+    seg_f = root / "preds" / "case.nii.gz"
+    seg = np.asarray(nifti.load(seg_f).data)
+    t0 = time.perf_counter()
+    probs = np.load(root / "preds" / "case.npz")["probabilities"]
+    npz_read_s = time.perf_counter() - t0
+    am = np.argmax(probs, 0)
+    diff = am != seg
+    at_label = np.take_along_axis(probs, seg[None].astype(np.int64), 0)[0]
+    ties = int(diff.sum())
+    ties_ok = bool(np.array_equal(at_label[diff], probs.max(0)[diff]))
+    del probs, am, at_label
+    res["pth"] = {
+        "case": list(ENGINE_CASE), "pth_mib": pth_mb, "write_s": write_s,
+        "convert_s": convert_s, "npz_load_s": npz_load_s, "predict_s": predict_s,
+        "spans": spans, "peak_gib": peak, "forwards": fwd,
+        "samples": sum(calls), "launches": launches,
+        "npz_read_s": npz_read_s, "argmax_ties_float16": ties,
+        "classes_present": int(np.unique(seg).size)}
+    emit({"phase": "engine", "part": "pth", **res["pth"]})
+    assert seg.shape == ENGINE_CASE and sum(calls) == 12 * 2 * ENGINE_MIRRORS, calls
+    assert fwd == 12 * 2 and launches == want, (launches, want)
+    # the labels are an argmax of the .npz: where np.argmax differs, the
+    # label's float16 probability ties the maximum
+    assert ties_ok, ties
+
+    # the same folder without probabilities (the fused path), twice in this
+    # process; then into a store and `-d` as the command line, in a subprocess
+    labels = {}
+    for run in ("m1", "m2"):
+        t0 = time.perf_counter()
+        ep.predict_folder(case_dir, root / f"preds_{run}", model_dir=mdir, folds=[0, 1],
+                          step_size=0.5)
+        labels[run] = (time.perf_counter() - t0, root / f"preds_{run}" / "case.nii.gz")
+    t0 = time.perf_counter()
+    import_torch_model_folder(mdir, root / "store")
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "boa_tpu_torch.engine.predict", "-i", str(case_dir),
+           "-o", str(root / "preds_d"), "-d", "297", "-f", "0", "1", "-step_size", "0.5"]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=_cli_env(BOA_WEIGHTS_PATH=str(root / "store")))
+    cmd_s = time.perf_counter() - t0
+    assert r.returncode == 0, r.stderr[-3000:]
+    m1, m2, d = (np.asarray(nifti.load(f).data) for f in
+                 (labels["m1"][1], labels["m2"][1], root / "preds_d" / "case.nii.gz"))
+    # the store's folds are the folder's, bit for bit
+    store_dir = root / "store" / mdir.parent.name / mdir.name
+    same_params = all(
+        np.array_equal(a, b) and a.dtype == b.dtype for f in (0, 1) for a, b in zip(
+            _leaves(cv.load_params_npz(mdir / f"fold_{f}" / "checkpoint_final.npz")),
+            _leaves(cv.load_params_npz(store_dir / f"fold_{f}" / "checkpoint_final.npz")),
+            strict=True))
+    res["store"] = {
+        "import_s": import_s, "command_s": cmd_s, "fused_predict_s": labels["m1"][0],
+        "fused_predict_again_s": labels["m2"][0],
+        "d_bytes_equal_m": (root / "preds_d" / "case.nii.gz").read_bytes()
+        == labels["m1"][1].read_bytes(),
+        "voxels_d_vs_m": int((d != m1).sum()), "voxels_m_vs_m_again": int((m2 != m1).sum()),
+        "voxels_probs_path_vs_fused": int((seg != m1).sum()),
+        "store_params_bit_identical": same_params}
+    emit({"phase": "engine", "part": "store", **res["store"]})
+    # K1's and K2's instance-norm sums are atomicAdds, so two runs of one
+    # model on the card round differently at a few voxels (50-158 of 6.9 M
+    # on an H100 80GB HBM3, 2.3e-5 at most): `-d` is held to the folder
+    # form at 1e-4
+    assert same_params
+    assert (d == m1).mean() > 1 - 1e-4 and (m2 == m1).mean() > 1 - 1e-4
+    assert (seg == m1).mean() > 0.99
+
+    # `-m` and `-d` once more in this process with the network on the plain
+    # composite: the same code path but for the sums' order, so equal bytes
+    # here put the differences above on the kernels' atomic sums
+    plain_s = {}
+    rc.reset_launches()
+    pc.reset_launches()
+    with _plain_composite(rc):
+        for run, kw in (("pm", {"model_dir": mdir}),
+                        ("pd", {"task_id": 297, "store": ModelStore(root / "store")})):
+            t0 = time.perf_counter()
+            ep.predict_folder(case_dir, root / f"preds_{run}", folds=[0, 1],
+                              step_size=0.5, **kw)
+            plain_s[run] = time.perf_counter() - t0
+    plain_launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    pm_f, pd_f = (root / f"preds_{run}" / "case.nii.gz" for run in ("pm", "pd"))
+    pm = np.asarray(nifti.load(pm_f).data)
+    res["plain"] = {"predict_m_s": plain_s["pm"], "predict_d_s": plain_s["pd"],
+                    "launches": plain_launches,
+                    "d_bytes_equal_m": pd_f.read_bytes() == pm_f.read_bytes(),
+                    "voxels_plain_vs_kernels": int((pm != m1).sum())}
+    emit({"phase": "engine", "part": "plain", **res["plain"]})
+    assert all(n == 0 for n in plain_launches.values()), plain_launches
+    assert res["plain"]["d_bytes_equal_m"], res["plain"]
+    assert (pm == m1).mean() > 0.99
+
+    # the kernel composite against the plain composite on the batch the path
+    # sends: the case's first tile and its 7 flips (`_forward_tta`'s batch)
+    model = cast_model(cv.params_from_numpy(folds[0], cfg, "cuda"), torch.bfloat16)
+    plans = ModelPlans(plans_d, dataset, conf)
+    v = _normalize(torch.as_tensor(np.asarray(img.data)[None], dtype=torch.float32,
+                                   device="cuda"),
+                   [plans.channel_intensity_properties(0)], plans.normalization_schemes)
+    x = v[0, :128, :128, :128][None, ..., None].bfloat16()
+    axes = get_variant("nnUNetTrainer").mirror_axes
+    xs = torch.cat([x] + [torch.flip(x, c) for c in mirror_combos(axes)]).contiguous()
+    del v, x
+    with torch.no_grad():
+        got = model(xs, rc.KERNELS)
+        ref = model(xs, rc.PLAIN)
+        kernels_again = bool(torch.equal(got, model(xs, rc.KERNELS)))
+        plain_again = bool(torch.equal(ref, model(xs, rc.PLAIN)))
+        ms_kernels = time_ms(torch, lambda: model(xs, rc.KERNELS), 3)
+    samples = []
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        samples.append({"argmax_agree": float((g.argmax(-1) == r.argmax(-1)).float().mean()),
+                        "max_abs_err": float((g - r).abs().max()),
+                        "logit_absmax": float(r.abs().max()),
+                        "finite": bool(torch.isfinite(g).all())})
+    res["tile"] = {"batch": int(xs.shape[0]), "samples": samples,
+                   "argmax_agree": min(c["argmax_agree"] for c in samples),
+                   "max_abs_err": max(c["max_abs_err"] for c in samples),
+                   "max_rel_err": max(c["max_abs_err"] / c["logit_absmax"] for c in samples),
+                   "kernels_repeat_bit_equal": kernels_again,
+                   "plain_repeat_bit_equal": plain_again, "ms_batch_kernels": ms_kernels}
+    emit({"phase": "engine", "part": "tile", **res["tile"]})
+    del model, got, ref, xs, folds
+    torch.cuda.empty_cache()
+    assert res["tile"]["batch"] == ENGINE_MIRRORS and plain_again, res["tile"]
+    if not all(c["finite"] and c["argmax_agree"] > 0.99
+               and c["max_abs_err"] <= 2e-2 * c["logit_absmax"] for c in samples):
+        raise AssertionError(f"engine tile composite {res['tile']}")
+
+    # ---- (b) ResEnc M at full width, eager
+    plans_d, dataset, conf = _engine_plans(RESENC_M["features"], (128, 128, 128),
+                                           (1.5, 1.5, 1.5), RESENC_M["blocks"])
+    mdir, _ = _engine_folder(root / "results", 298, plans_d, dataset, conf, 1, 10)
+    _engine_case(root / "cases_resenc", (128, 128, 128), (1.5, 1.5, 1.5))
+    res["resenc"] = _eager_check(torch, mdir, conf, root / "cases_resenc",
+                                 root / "preds_resenc")
+    emit({"phase": "engine", "part": "resenc", **res["resenc"]})
+
+    # ---- (c) 2d at full width on a slice stack, eager
+    plans_d, dataset, conf = _engine_plans(TWO_D["features"], TWO_D["patch"],
+                                           TWO_D["spacing"])
+    mdir, _ = _engine_folder(root / "results", 299, plans_d, dataset, conf, 1, 20)
+    _engine_case(root / "cases_2d", TWO_D["case"], TWO_D["spacing"] + (3.0,))
+    res["two_d"] = _eager_check(torch, mdir, conf, root / "cases_2d", root / "preds_2d")
+    emit({"phase": "engine", "part": "two_d", **res["two_d"]})
+
+    tmp_dir.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "engine", "part": "done", "phase_s": res["phase_s"]})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -2578,14 +3018,15 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study, total, bca, cli, api) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
             summary.append(dict(_row(name, fused_cases, fused_cases, fused["launches"]),
                                 finish_launches=fused["finish_launches"],
                                 launches_cli=cli["study"]["launches"][name],
-                                launches_api=api["nifti"]["launches"][name]))
+                                launches_api=api["nifti"]["launches"][name],
+                                launches_engine=engine["pth"]["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -2602,6 +3043,8 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api) -> list[dic
         row["launches_bca"] = bca["study"]["launches"][name]
         row["launches_cli"] = cli["study"]["launches"][name]
         row["launches_api"] = api["nifti"]["launches"][name]
+        # engine (a): 24 forwards of a batch of 8 flips (192 network evaluations)
+        row["launches_engine"] = engine["pth"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -2658,8 +3101,11 @@ def main() -> int:
         phase_render(torch, rc, pc)
     if "api" in phases:
         api = phase_api(torch, rc, pc)
+    if "engine" in phases:
+        engine = phase_engine(torch, rc, pc)
     if phases == ALL_PHASES:
-        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api)})
+        emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api,
+                                  engine)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

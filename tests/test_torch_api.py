@@ -24,6 +24,7 @@ from boa_tpu import python_api as japi
 from boa_tpu.io import nifti as jn
 from boa_tpu.tools import total_segmentator as jts
 from boa_tpu_torch import python_api as tapi
+from boa_tpu_torch.device import named_device
 from boa_tpu_torch.io import nifti as tn
 from boa_tpu_torch.tools import total_segmentator as tts
 from boa_tpu_torch.weights.store import ModelStore
@@ -492,10 +493,10 @@ def test_device_rule(study, monkeypatch):
     for bad in ("tpu", "mps", "gpu:x", "cpu:0", ""):
         with pytest.raises(ValueError):
             tapi.totalsegmentator(study, None, fast=True, device=bad, fake_predict=_fake)
-    assert tapi.api_device("cpu") == torch.device("cpu")
+    assert named_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for card in ("gpu", "cuda", "gpu:1"):
         with pytest.raises(RuntimeError, match="CUDA"):
-            tapi.api_device(card)
+            named_device(card)
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.totalsegmentator(study, None, fast=True, fake_predict=_fake)

@@ -26,7 +26,11 @@ front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"
          "boa_tpu_torch.measure.shape", "boa_tpu_torch.io.dicom_seg",
          "boa_tpu_torch.io.rtstruct", "boa_tpu_torch.compute.geometry",
          "boa_tpu_torch.tools.total_segmentator", "boa_tpu_torch.tools.combine_masks",
-         "boa_tpu_torch.tools.set_license", "boa_tpu_torch.tools.setup_manually"}
+         "boa_tpu_torch.tools.set_license", "boa_tpu_torch.tools.setup_manually",
+         "boa_tpu_torch.engine", "boa_tpu_torch.engine.predict",
+         "boa_tpu_torch.engine.ensembling", "boa_tpu_torch.engine.evaluation",
+         "boa_tpu_torch.engine.fingerprint", "boa_tpu_torch.train",
+         "boa_tpu_torch.train.variants", "boa_tpu_torch.testing.nnunet_checkpoint"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -35,9 +39,10 @@ sys.exit(1 if bad or not front <= set(sys.modules) else 0)
 
 def test_import_loads_no_jax_and_no_reference_package():
     """The walk imports every module, the front door's (cli, __main__,
-    commands) and the TotalSegmentator API's (python_api, radiomics, shape,
-    the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) among
-    them."""
+    commands), the TotalSegmentator API's (python_api, radiomics, shape,
+    the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) and
+    the model-folder tools' (engine/, train/variants.py, the checkpoint
+    writer in testing/) among them."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -113,3 +118,34 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     pred = Predictor(plans=plans, fold_params=[params], device="cpu")
     assert pred.predict(np.zeros((16, 16, 16), np.float32), (3.0, 3.0, 3.0)).shape \
         == (16, 16, 16)
+
+
+def test_model_folder_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """The model-folder predictor, the residual and 2d networks and the
+    checkpoint conversion into modules need the card unless asked for the
+    CPU; `python -m boa_tpu_torch.engine.predict` without `-device` too."""
+    from boa_tpu_torch.engine.predict import main, predict_folder
+    from boa_tpu_torch.models.unet import ArchConfig, make_unet
+    from boa_tpu_torch.weights.store import create_synthetic_model
+
+    mdir = create_synthetic_model(tmp_path / "w", 905, "t", num_classes=3,
+                                  patch_size=(16, 16, 16), features=(4, 8))
+    cases = tmp_path / "cases"
+    cases.mkdir()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict_folder(cases, tmp_path / "o", model_dir=mdir, folds=[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-i", str(cases), "-o", str(tmp_path / "o"), "-m", str(mdir)])
+    assert predict_folder(cases, tmp_path / "o", model_dir=mdir, folds=[0],
+                          device="cpu") == []
+    for kw in (dict(residual_encoder=True, n_blocks_per_stage=(1, 1)),
+               dict(two_d=True, kernel_sizes=((3, 3, 1),) * 2,
+                    strides=((1, 1, 1), (2, 2, 1)))):
+        cfg = ArchConfig(**{**dict(n_stages=2, features_per_stage=(4, 8),
+                                   kernel_sizes=((3, 3, 3),) * 2,
+                                   strides=((1, 1, 1), (2, 2, 2)),
+                                   n_conv_per_stage=(2, 2),
+                                   n_conv_per_stage_decoder=(2,), num_classes=3), **kw})
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_unet(cfg)
+        assert make_unet(cfg, "cpu").seg_heads[0].weight.device.type == "cpu"
