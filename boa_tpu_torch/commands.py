@@ -10,8 +10,11 @@ DICOM series directory, which the ingest stage (`io/dicom_io.py`) writes
 to `image.nii.gz` with its metadata rows for the `info` sheet. Where the
 port differs: the header names torch and the device (with the card's
 name), `BOA_PROFILE` records a `torch.profiler` trace, and `device` and
-`store` reach `compute_all_models`. What is not ported raises before any
-work: a trained sklearn contrast bundle (M9 (vi)).
+`store` reach `compute_all_models`. A trained sklearn contrast bundle
+(`BOA_CONTRAST_MODEL`) answers the contrast rows; where it cannot be read
+(sklearn missing, say), the contrast stage fails alone, as in the
+reference: the other outputs are written and the traceback goes to
+`debug_information.txt`.
 """
 
 from __future__ import annotations
@@ -244,8 +247,8 @@ def analyze_ct(
     `spans`, when given, receives `compute_all_models`' stage seconds.
     `input_folder` is a NIfTI file or a DICOM series directory.
     `total_preview` writes `preview_total.png` and `bca_pdf` `report.pdf`
-    (the reference's defaults). A trained contrast bundle raises before any
-    work, as does an input that does not exist."""
+    (the reference's defaults). An input that does not exist raises before
+    any work."""
     input_folder = Path(input_folder)
     processed_output_folder = Path(processed_output_folder)
     excel_output_folder = Path(excel_output_folder)
@@ -253,8 +256,6 @@ def analyze_ct(
     device = resolve_device(device)
     if not input_folder.exists():
         raise FileNotFoundError(f"input {input_folder} does not exist")
-    if compute_contrast_information and "total" in models:
-        contrast.check_supported()
     processed_output_folder.mkdir(parents=True, exist_ok=True)
     excel_output_folder.mkdir(parents=True, exist_ok=True)
 

@@ -4,18 +4,20 @@ Counterpart of `boa_tpu/compute/contrast.py` (the `boa_contrast.predict`
 call at body_organ_analysis `commands.py:216-241`): per-organ HU
 statistics of the `total` labels, read from `total-measurements.json` (or
 computed from the files when it is missing), give
-- the IV phase: the vendored pi-time regressor folds
+- with a trained sklearn bundle (an explicit path or `BOA_CONTRAST_MODEL`
+  that exists, else ``~/.boa_tpu/contrast_model.pkl`` if it exists): both
+  answers from the bundle's `phase_models` and `git_models`
+  (`predict_proba`, averaged). `pickle.load` imports sklearn, so a bundle
+  needs sklearn where it is read, and a pickle is trusted code;
+  `fit_contrast_model` writes one;
+- otherwise the IV phase from the vendored pi-time regressor folds
   (`tools/get_phase.py`) through the organ median HUs, or the aorta/portal
-  rule when no measurements exist;
-- GIT contrast: the vendored stand-in folds
-  (`boa_tpu_torch/resources/git_contrast_classifiers_boa_tpu.json.*`,
-  trained on synthetic phantoms) through `compute/xgb.py`. `BOA_GIT_MODEL`
-  names another fold stem, or ``heuristic`` for the bowel-HU rule.
-A trained sklearn bundle and `fit_contrast_model` need sklearn and are not
-ported (ROADMAP M9 (vi)): where the reference would load a bundle (an
-explicit path or `BOA_CONTRAST_MODEL` that exists, or
-``~/.boa_tpu/contrast_model.pkl``) the port raises; a path that does not
-exist is ignored, as the reference ignores it.
+  rule when no measurements exist, and GIT contrast from the vendored
+  stand-in folds (`boa_tpu_torch/resources/git_contrast_classifiers_boa_tpu.json.*`,
+  trained on synthetic phantoms by `compute/gbm.py`) through
+  `compute/xgb.py`. `BOA_GIT_MODEL` names another fold stem, or
+  ``heuristic`` for the bowel-HU rule.
+A path that does not exist is ignored, as the reference ignores it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 from pathlib import Path
 from typing import Any
 
@@ -85,16 +88,6 @@ def _model_path(explicit: str | Path | None = None) -> Path | None:
         return Path(p)
     default = Path.home() / ".boa_tpu" / "contrast_model.pkl"
     return default if default.exists() else None
-
-
-def check_supported(model_path: str | Path | None = None) -> None:
-    """Raise where the reference would load a trained sklearn bundle
-    (`_model_path`); otherwise the study scores the vendored folds."""
-    path = _model_path(model_path)
-    if path is not None:
-        raise NotImplementedError(
-            f"the sklearn contrast bundle ({path}) is not ported yet "
-            f"(ROADMAP M9 (vi)): unset BOA_CONTRAST_MODEL")
 
 
 def _heuristic_phase(feats: dict[str, float]) -> tuple[int, list[float]]:
@@ -208,9 +201,7 @@ def predict(ct_path: Path | str | nifti.NiftiImage,
             segmentation_folder: Path | str,
             model_path: str | Path | None = None,
             one_mask_per_file: bool = False) -> dict[str, Any]:
-    """`boa_contrast.predict`-compatible entry; an existing `model_path` (a
-    trained sklearn bundle) raises."""
-    check_supported(model_path)
+    """`boa_contrast.predict`-compatible entry."""
     measurements = None
     meas_path = Path(segmentation_folder) / "total-measurements.json"
     if meas_path.exists():
@@ -222,27 +213,62 @@ def predict(ct_path: Path | str | nifti.NiftiImage,
         total = nifti.load(Path(segmentation_folder) / "total.nii.gz")
         feats = extract_features(np.asarray(ct_img.data), np.asarray(total.data))
 
-    pi_phase = _phase_from_pi_time(measurements)
-    if pi_phase is None:
-        logger.info("No measurements for the pi-time phase; using the heuristic rules")
-        pi_phase = _heuristic_phase(feats)
-    phase_idx = pi_phase[0]
-    try:
-        git_idx, git_prob = _git_from_features(feats)
-    except FileNotFoundError:
-        # a typo'd BOA_GIT_MODEL must not take the IV phase down with it
-        # (analyze_ct's contrast guard would drop both info rows)
-        logger.exception("BOA_GIT_MODEL is set but unloadable; falling back to the "
-                         "heuristic GIT rule for this study")
-        git_idx, git_prob = _heuristic_git(feats)
+    mp = _model_path(model_path)
+    if mp is not None:
+        with open(mp, "rb") as f:
+            bundle = pickle.load(f)
+        x = np.nan_to_num(feature_vector(feats), nan=-1024.0)[None]
+        phase_probs = np.mean([m.predict_proba(x)[0] for m in bundle["phase_models"]], axis=0)
+        git_probs = np.mean([m.predict_proba(x)[0] for m in bundle["git_models"]], axis=0)
+        phase_idx = int(np.argmax(phase_probs))
+        git_idx = int(np.argmax(git_probs))
+        git_prob = float(git_probs[1]) if len(git_probs) > 1 else 0.0
+    else:
+        pi_phase = _phase_from_pi_time(measurements)
+        if pi_phase is None:
+            logger.info("No measurements for the pi-time phase; using the heuristic rules")
+            pi_phase = _heuristic_phase(feats)
+        phase_idx = pi_phase[0]
+        try:
+            git_idx, git_prob = _git_from_features(feats)
+        except FileNotFoundError:
+            # a typo'd BOA_GIT_MODEL must not take the IV phase down with it
+            # (analyze_ct's contrast guard would drop both info rows)
+            logger.exception("BOA_GIT_MODEL is set but unloadable; falling back to the "
+                             "heuristic GIT rule for this study")
+            git_idx, git_prob = _heuristic_git(feats)
 
     return {
         "phase_ensemble_predicted_class": PHASES[phase_idx],
         "phase_ensemble_prediction": phase_idx,
         "git_ensemble_predicted_class": bool(git_idx),
         "git_ensemble_prediction": git_prob,
-        # the GIT folds are a synthetic-phantom stand-in: the info sheet
-        # says so
-        "git_classifier_is_standin": True,
+        # True unless a trained bundle answered: the GIT folds are a
+        # synthetic-phantom stand-in, and the info sheet says so
+        "git_classifier_is_standin": mp is None,
         "features": feats,
     }
+
+
+def fit_contrast_model(features: np.ndarray, phase_labels: np.ndarray,
+                       git_labels: np.ndarray, n_ensemble: int = 5,
+                       out_path: str | Path | None = None) -> dict:
+    """Train a fresh sklearn GBM ensemble (per-study `feature_vector` rows)
+    and pickle it to `out_path` when given; sklearn is imported here only."""
+    from sklearn.ensemble import HistGradientBoostingClassifier
+
+    x = np.nan_to_num(np.asarray(features, np.float32), nan=-1024.0)
+    bundle = {"phase_models": [], "git_models": [],
+              "feature_names": [f"{o}_{s}" for o in FEATURE_ORGANS for s in FEATURE_STATS]}
+    for i in range(n_ensemble):
+        pm = HistGradientBoostingClassifier(random_state=i)
+        pm.fit(x, phase_labels)
+        bundle["phase_models"].append(pm)
+        gm = HistGradientBoostingClassifier(random_state=100 + i)
+        gm.fit(x, git_labels)
+        bundle["git_models"].append(gm)
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "wb") as f:
+            pickle.dump(bundle, f)
+    return bundle

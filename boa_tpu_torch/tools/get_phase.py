@@ -6,11 +6,19 @@ features (plus the head and neck vessels when given) -> the vendored
 regressor folds (`boa_tpu_torch/resources/contrast_phase_classifiers_2024_07_19.pkl`,
 scored by `compute/xgb.py`) predict the pi-time -> `pi_time_to_phase`.
 `BOA_PHASE_MODEL` names another pickle, or ``heuristic`` for the
-aorta/portal rule. The command-line tool is not ported (ROADMAP M9 (v)).
+aorta/portal rule. The command (`main`, the reference's `:145-180`) runs
+the fast `total` model with median statistics through the port's
+`predict_image` on the card, and `headneck_bones_vessels` for the four
+vessel features when the brain's volume is over 100 (`:166`).
+
+    python -m boa_tpu_torch.tools.get_phase -i ct.nii.gz -o phase.json [-m model.pkl]
+    ... -d cpu      # on the host; the default is the card (-d gpu)
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import logging
 import os
 import pickle
@@ -20,6 +28,7 @@ from typing import Any
 import numpy as np
 
 from boa_tpu_torch.compute.xgb import load_pickled_ensembles
+from boa_tpu_torch.device import named_device
 
 logger = logging.getLogger(__name__)
 
@@ -137,3 +146,45 @@ def get_ct_contrast_phase(stats: dict[str, Any],
     return {"pi_time": pi_time, "pi_time_std": pi_time_std,
             "phase": phase, "probability": prob,
             "pi_time_min": pi_min, "pi_time_max": pi_max}
+
+
+def main(argv=None, *, store=None, fake_predict=None) -> None:
+    """The command. `store` (default `ModelStore()`) and `fake_predict` (the
+    pipeline's test hook) are for callers in Python, not on the command
+    line."""
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.weights.store import ModelStore
+
+    ap = argparse.ArgumentParser("totalseg_get_phase")
+    ap.add_argument("-i", "--input", type=Path, required=True)
+    ap.add_argument("-o", "--output", type=Path, default=None)
+    ap.add_argument("-m", "--model-file", type=Path, default=None)
+    ap.add_argument("-d", "--device", default="gpu",
+                    help="gpu (the card, default), gpu:N or cpu")
+    args = ap.parse_args(argv)
+    device = named_device(args.device)
+
+    img = nifti.load(args.input)
+    store = store or ModelStore()
+    # the reference's feature semantics (`totalseg_get_phase.py:57-120`):
+    # median HU, border masks included
+    res = predict_image(img, "total", store, fast=True, statistics=True,
+                        stats_aggregation="median", stats_exclude_border=False,
+                        fake_predict=fake_predict, device=device)
+    stats_hn = None
+    if res.stats.get("brain", {}).get("volume", 0) > 100:
+        # head present: the carotid/jugular features come from the
+        # headneck_bones_vessels model (`:82-93`); without it they are 0
+        res_hn = predict_image(img, "headneck_bones_vessels", store, statistics=True,
+                               stats_aggregation="median", stats_exclude_border=False,
+                               fake_predict=fake_predict, device=device)
+        stats_hn = res_hn.stats
+    out = get_ct_contrast_phase(res.stats, stats_hn, model_file=args.model_file)
+    print(json.dumps(out, indent=2))
+    if args.output:
+        args.output.write_text(json.dumps(out, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -60,7 +60,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 7. measure  - the measurement path from a CT file to the study's files:
               (a) `compute_all_models(ct_path, out, ["total"])` with the small
               five-model store of 6 (a) at two stages (widths 32/64) on a
-              96x96x64 `.nii.gz` written by the
+              96x96x32 `.nii.gz` written by the
               port's codec, on the card and on the CPU: total.nii.gz,
               ct_pfav.nii.gz, total-statistics.json and total-measurements.json
               exist and load, labels agree > 0.99, launches as in 6 (a); (b) the
@@ -81,7 +81,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               plus body_parts (543) and body_regions (542) at the same
               widths with five folds each
               (1.5 x 1.5 x 5 mm, the plans' grid, the head bias with
-              background's lead) on the 96x96x64 `.nii.gz`, on the card and on
+              background's lead) on the 96x96x32 `.nii.gz`, on the card and on
               the CPU: every promised file exists and loads, the labels of each
               `.nii.gz` agree > 0.99, bca-measurements.json has the same keys
               and Nones on both sides, launches tiles x folds x (4, 1, 1) with
@@ -105,7 +105,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               runs too, whose (c) times the same study through the CLI
 9. cli      - the front door, `python -m boa_tpu_torch`, from a CT file to its
               files and output.xlsx: (a) the command as a subprocess with
-              `--device cuda` on 8 (a)'s small stores and 96x96x64 file,
+              `--device cuda` on 8 (a)'s small stores and 96x96x32 file,
               `-m total+bca --fast-bca --bca-no-pdf`, contrast on: exit 0, the
               six sheets, debug_information.txt names the card, every label
               file agrees > 0.99 with the same command in this process on the
@@ -120,8 +120,8 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               with seconds, analyze_ct's stats, spans, peak memory, launches
               tiles x folds x (4, 1, 1), no K5 launch and no model loaded
               again
-10. dicom   - DICOM ingestion, from a series directory: (a) 8 (a)'s 96x96x64
-              CT as a JPEG-LS series (the port's `write_ct_series`) through
+10. dicom   - DICOM ingestion, from a series directory: (a) a 96x96x64
+              bench CT as a JPEG-LS series (the port's `write_ct_series`) through
               `analyze_ct` with 5's small `total_fast` (widths 32/64/128,
               32^3 patch), `-m total` fast, contrast on, on the card and in
               this process on the CPU:
@@ -163,7 +163,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
 12. api     - the TotalSegmentator API (`python_api.totalsegmentator`) and
               its writers on the full-width total_fast store, the anatomy
               phantom's hook with `run_real` (the real forward on K1-K3, the
-              phantom's labels measured and written): (a) the 512x512x300
+              phantom's labels measured and written): (a) the 512x512x150
               phantom from its .nii.gz with statistics, radiomics and the
               preview, per-class masks: seconds, spans (predict, statistics,
               radiomics_histogram, radiomics_shape, save_nifti, preview),
@@ -185,12 +185,12 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               checkpoints (`testing/nnunet_checkpoint.py`) at full width:
               (a) total_fast's network (6-stage PlainConvUNet 32->320, 118
               classes, 128^3 patch, 3 mm plan) as a results folder with two
-              `checkpoint_final.pth` folds, one 224x192x160 case at 3 mm,
+              `checkpoint_final.pth` folds, one 224x192x96 case at 3 mm,
               nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
               --save_probabilities`: the conversion's, the cached .npz load's,
-              the predict's and the export's seconds, peak memory; 24 network
-              forwards (12 tiles x 2 folds, the 8 flips of a tile as one
-              batch: 192 evaluations) counted from the model's side, K1/K2/K3
+              the predict's and the export's seconds, peak memory; 12 network
+              forwards (6 tiles x 2 folds, the 8 flips of a tile as one
+              batch: 96 evaluations) counted from the model's side, K1/K2/K3
               launches (4, 1, 1) per forward with the split plan's finishing
               passes, no K5; the labels an argmax of the .npz (differences
               only at float16 ties, counted); the folder again without
@@ -212,20 +212,43 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               TTA, eager bf16 (no row-conv launch), labels against a float32
               Predictor on the card > 0.99, seconds, peak memory, the bf16 and
               fp32 forward's ms
+14. tools   - the TotalSegmentator tools: (a) the gradient-descent
+              registration (`ops/registration.py`) of the 1 mm brain atlas
+              against a known perturbation of itself (10 degrees, scale
+              1.05, a shift), levels (4, 2): NCC > 0.9, mean landmark error
+              < 2 voxels, the seconds of each level, one NCC loss and its
+              gradient card against CPU at rtol 1e-4; (b) `evans_index`,
+              `crop_to_body`, `get_modality` (with and without -n) and
+              `get_phase` as commands on full-width synthetic models, each
+              on K1-K3 (launches (4, 1, 1) per forward) and on the plain
+              composite: the same JSON, bbox and modality, pi_time within
+              0.5; `evans_index` with the CT on a turned 2 mm atlas, card
+              against CPU within 0.01, its PNG written
+15. serve   - the serving layer: (a) `StreamRunner` over five 512x512x150
+              phantom files, one truncated: four studies, labels equal to a
+              serial predict_image on the plain composite and, on the
+              kernels, apart at no more than max(1e-4, 3 x their own
+              run-to-run share), volumes per minute against the serial
+              loop, launches (4, 1, 1) per forward; (b) the warm-up
+              command's entry over two buckets and the study's own shape in
+              a fresh process, its first study against a fresh process not
+              warmed, `--bake --stamp` twice (the second without a launch)
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render, api, engine) only those phases run after the device phase, and the
-kernel summary line is left out. Each phase prints one JSON line (the total,
-measure, bca, cli, dicom, render, api and engine phases one per part).
+dicom, render, api, engine, tools, serve) only those phases run after the device
+phase, and the kernel summary line is left out. Each phase prints one JSON line
+(the total, measure, bca, cli, dicom, render, api, engine, tools and serve phases
+one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
-of api (a), `launches_engine` engine (a)'s predict; K5's row has the last
-three too) and, last,
+of api (a), `launches_engine` engine (a)'s predict, `launches_tools` the
+tools' commands of tools (b), `launches_serve` the stream of serve (a); K5's
+row has the last five too) and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -247,14 +270,16 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render", "api", "engine")
+              "dicom", "render", "api", "engine", "tools", "serve")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
 # the small runs of the measure, bca and cli phases (card against the CPU):
 # two stages, cut from the small checks' three to keep the script's time
 SMALL_RUN_FEATURES = (32, 64)
+SMALL_RUN_SHAPE = (96, 96, 32)   # their CT: 32 slices, cut from 64 for the same reason
 STUDY_SHAPE = (512, 512, 300)   # the bench's CT, as the measure phase's (b) and (c) use it
+API_SHAPE = (512, 512, 150)     # api (a)'s phantom: 150 slices, cut from 300 for the time limit
 PART_IDS = (291, 292, 293, 294, 295)   # the sub-models of `total`, merged in order
 BACKGROUND_LEAD = 1.0   # background's head bias over the largest other, per part
 REPLACES = {
@@ -680,7 +705,11 @@ def _synthetic(tmp, task_id: int, name: str, trainer: str, num_classes: int,
         0, 3.0, head["b"].shape), head["b"].dtype)
     if background_lead is not None:
         head["b"][0] = head["b"][1:].max() + background_lead
-    cv.save_params_npz(p0, path)
+    # uncompressed: random weights do not deflate, and the store reads them
+    # back at every first load
+    arrays: dict = {}
+    cv._flatten(p0, "", arrays)
+    np.savez(path, **arrays)
 
 
 def _store(tmp, features, patch, label_names):
@@ -1121,7 +1150,7 @@ def _measure_volume(shape, spacing):
 def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
     """The measurement path. (a) `compute_all_models(ct_path, out, ["total"])`
     on the small five-model store at two stages (widths 32/64, 32^3 patch) from a
-    96x96x64 `.nii.gz` written by the port's codec, on the card and on the
+    96x96x32 `.nii.gz` written by the port's codec, on the card and on the
     CPU: every promised file exists and loads, labels agree > 0.99, launches
     tiles x (4, 1, 1) with the split plan's finishing passes; (b) the
     measurement engine at 512x512x300 (`get_basic_statistics` mean and
@@ -1176,7 +1205,7 @@ def phase_measure(torch, rc, pc, profile_run: bool = False) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         store = _parts_store(tmp, SMALL_RUN_FEATURES, (32, 32, 32), (1.5, 1.5, 1.5))
-        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        img = _bench_ct(SMALL_RUN_SHAPE, (1.5, 1.5, 3.0))
         nifti.save(img, tmp / "ct.nii.gz")
         spans: dict = {}
         reset()
@@ -1486,7 +1515,7 @@ def phase_bca(torch, rc, pc, timed: bool = True) -> dict:
     """The BCA chain. (a) `compute_all_models(ct_path, out, ["total", "bca"])`
     on small stores (the five sub-models of 6 (a), body_parts and
     body_regions with five folds, at two stages: widths 32/64, 32^3 patch) from a
-    96x96x64 `.nii.gz`, on the card and on the CPU: every promised file
+    96x96x32 `.nii.gz`, on the card and on the CPU: every promised file
     exists and loads, labels agree > 0.99, bca-measurements.json has the
     same keys and Nones, launches tiles x folds x (4, 1, 1) with the split
     plan's finishing passes; (b) the BCA device passes at 512x512x300 on the
@@ -1536,7 +1565,7 @@ def phase_bca(torch, rc, pc, timed: bool = True) -> dict:
         patch = (32, 32, 32)
         store = _parts_store(tmp, SMALL_RUN_FEATURES, patch, (1.5, 1.5, 1.5))
         _bca_store(tmp, SMALL_RUN_FEATURES, patch)
-        img = _bench_ct((96, 96, 64), (1.5, 1.5, 3.0))
+        img = _bench_ct(SMALL_RUN_SHAPE, (1.5, 1.5, 3.0))
         nifti.save(img, tmp / "ct.nii.gz")
         spans: dict = {}
         reset()
@@ -1810,7 +1839,7 @@ def _cli_study(torch, rc, pc, out_name: str, flags: list) -> dict:
 def phase_cli(torch, rc, pc) -> dict:
     """The front door, `python -m boa_tpu_torch`, from a CT file to its
     files and output.xlsx. (a) the command as a subprocess with `--device
-    cuda` on bca (a)'s small stores (one BCA fold: --fast-bca) and 96x96x64
+    cuda` on bca (a)'s small stores (one BCA fold: --fast-bca) and 96x96x32
     file, `-m total+bca --bca-no-pdf`, contrast on: exit 0, the six sheets,
     the debug file names the card, labels agree > 0.99 with the same run
     in-process on the CPU, the prediction counter rose by the number of
@@ -1857,7 +1886,7 @@ def phase_cli(torch, rc, pc) -> dict:
         patch = (32, 32, 32)
         _parts_store(tmp / "w", SMALL_RUN_FEATURES, patch, (1.5, 1.5, 1.5))
         _bca_store(tmp / "w", SMALL_RUN_FEATURES, patch)
-        nifti.save(_bench_ct((96, 96, 64), (1.5, 1.5, 3.0)), tmp / "ct.nii.gz")
+        nifti.save(_bench_ct(SMALL_RUN_SHAPE, (1.5, 1.5, 3.0)), tmp / "ct.nii.gz")
         args = ["-i", str(tmp / "ct.nii.gz"), "-m", "total+bca", "--fast-bca", "--bca-no-pdf"]
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -1961,7 +1990,7 @@ def phase_cli(torch, rc, pc) -> dict:
 
 def phase_dicom(torch, rc, pc) -> dict:
     """DICOM ingestion, from a CT series directory to the study's files.
-    (a) bca (a)'s 96x96x64 CT written as a JPEG-LS series by the port's
+    (a) a 96x96x64 bench CT written as a JPEG-LS series by the port's
     `write_ct_series`, through `analyze_ct` with the small checks' models
     (`-m total` fast: `total_fast` at widths 32/64/128, 32^3 patch; contrast
     on) on the card and in this process on the CPU:
@@ -2399,7 +2428,7 @@ def phase_api(torch, rc, pc) -> dict:
     """The TotalSegmentator API (`boa_tpu_torch.python_api.totalsegmentator`)
     and its writers, on the full-width `total_fast` store with the anatomy
     phantom's hook set to `run_real` (the real forward runs on K1-K3, the
-    labels measured and written are the phantom's): (a) the 512x512x300
+    labels measured and written are the phantom's): (a) the 512x512x150
     phantom from its .nii.gz with statistics, radiomics and the preview,
     per-class masks: seconds, spans, peak memory, launches tiles x (4, 1, 1);
     the 117 masks byte-identical to the same call on the CPU with the plain
@@ -2444,7 +2473,7 @@ def phase_api(torch, rc, pc) -> dict:
 
     # --- (a) the NIfTI study with statistics, radiomics and the preview
     t_part = time.perf_counter()
-    ct = anatomy.synth_ct(STUDY_SHAPE, spacing)
+    ct = anatomy.synth_ct(API_SHAPE, spacing)
     nifti.save(nifti.NiftiImage(data=ct, affine=np.diag([*spacing, 1.0])), root / "ct.nii.gz")
     kw = dict(task="total", fast=True, statistics=True, radiomics=True, preview=True,
               store=store)
@@ -2479,7 +2508,7 @@ def phase_api(torch, rc, pc) -> dict:
     same_png = (root / "gpu" / "preview_total.png").read_bytes() == \
         (root / "cpu" / "preview_total.png").read_bytes()
     res["nifti"] = {
-        "shape": list(STUDY_SHAPE), "sec": sec, "cpu_s": cpu_s, "peak_mem_gib": peak,
+        "shape": list(API_SHAPE), "sec": sec, "cpu_s": cpu_s, "peak_mem_gib": peak,
         "spans": spans,
         "stages": {k: spans.get(k) for k in ("predict", "statistics", "radiomics_histogram",
                                              "radiomics_shape", "save_nifti",
@@ -2598,7 +2627,10 @@ def phase_api(torch, rc, pc) -> dict:
 # engine: the model-folder predictor on real-format .pth checkpoints
 # ---------------------------------------------------------------------------
 
-ENGINE_CASE = (224, 192, 160)   # at 3 mm: 12 tiles of 128^3 at step 0.5
+# at 3 mm: 6 tiles of 128^3 at step 0.5 (96 slices, cut from 160 for the
+# script's time limit)
+ENGINE_CASE = (224, 192, 96)
+ENGINE_TILES = 6
 ENGINE_MIRRORS = 8              # nnUNetTrainer's mirror axes (0, 1, 2): 2^3 flips
 RESENC_M = dict(features=(32, 64, 128, 256, 320, 320), blocks=(1, 3, 4, 6, 6, 6))
 TWO_D = dict(features=(32, 64, 128, 256, 512, 512, 512, 512), patch=(512, 512),
@@ -2779,12 +2811,12 @@ def phase_engine(torch, rc, pc) -> dict:
     on real-format nnU-Net checkpoints at full width, weights random from
     fixed seeds: (a) total_fast's network (6-stage PlainConvUNet 32->320,
     118 classes, 128^3 patch, 3 mm plan) as a results folder whose two folds
-    hold `checkpoint_final.pth`, one 224x192x160 case at 3 mm,
+    hold `checkpoint_final.pth`, one 224x192x96 case at 3 mm,
     nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
     --save_probabilities`: the folds converted (and cached as .npz), the
     cached load, the predict with its launches (K1/K2/K3 = (4, 1, 1) per
-    network forward, 12 tiles x 2 folds forwards of the 8 flips as one
-    batch: 192 network evaluations), the labels an argmax of the .npz; the
+    network forward, 6 tiles x 2 folds forwards of the 8 flips as one
+    batch: 96 network evaluations), the labels an argmax of the .npz; the
     folder without probabilities twice in this process, then imported into
     a store (the same parameters, bit for bit) and `-d` run as a
     subprocess: labels within 1e-4 of the folder's (two runs of one model
@@ -2864,8 +2896,8 @@ def phase_engine(torch, rc, pc) -> dict:
         "npz_read_s": npz_read_s, "argmax_ties_float16": ties,
         "classes_present": int(np.unique(seg).size)}
     emit({"phase": "engine", "part": "pth", **res["pth"]})
-    assert seg.shape == ENGINE_CASE and sum(calls) == 12 * 2 * ENGINE_MIRRORS, calls
-    assert fwd == 12 * 2 and launches == want, (launches, want)
+    assert seg.shape == ENGINE_CASE and sum(calls) == ENGINE_TILES * 2 * ENGINE_MIRRORS, calls
+    assert fwd == ENGINE_TILES * 2 and launches == want, (launches, want)
     # the labels are an argmax of the .npz: where np.argmax differs, the
     # label's float16 probability ties the maximum
     assert ties_ok, ties
@@ -3001,6 +3033,455 @@ def phase_engine(torch, rc, pc) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# tools: the TotalSegmentator tools and the registration on the card
+# ---------------------------------------------------------------------------
+
+TOOL_MODELS = (   # task id, folder name, trainer, class map, plan spacing
+    (552, "ventricle_parts", "nnUNetTrainerNoMirroring", "ventricle_parts",
+     (0.4384765625, 0.4345703125, 1.0)),
+    (300, "body_6mm", "nnUNetTrainer", "body", (6.0, 6.0, 6.0)),
+    (852, "total_mr_3mm", "nnUNetTrainer_2000epochs_NoMirroring", "total_mr", (3.0, 3.0, 3.0)),
+)
+
+
+def _perturbed_atlas(atlas, deg, scale, shift):
+    """`atlas` resampled through a known in-plane rotation, scale and shift
+    (moving(x) = atlas(A (x - c) + c + shift)), the true fixed -> moving
+    voxel map and the centre c."""
+    from scipy import ndimage as ndi
+
+    th = np.radians(deg)
+    a = np.array([[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0],
+                  [0.0, 0.0, 1.0]]) * scale
+    c = (np.asarray(atlas.shape, np.float64) - 1) / 2
+    offset = c + np.asarray(shift) - a @ c
+    moving = ndi.affine_transform(atlas, a, offset=offset, order=1)
+    ainv = np.linalg.inv(a)
+    return moving, (lambda x: ainv @ (x - offset)), c
+
+
+def _tool_runs(torch, rc, pc, run) -> dict:
+    """`run(mode)` on the kernels (launches counted from 0, network forwards
+    counted from the model's side) and again on the plain composite: each
+    run's result, seconds, launches and forwards."""
+    out = {}
+    for mode in ("kernels", "plain"):
+        calls: list = []
+        rc.reset_launches()
+        pc.reset_launches()
+        ctx = _plain_composite(rc) if mode == "plain" else _counting_forwards(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            result = run(mode)
+        torch.cuda.synchronize()
+        out[mode] = {"result": result, "sec": time.perf_counter() - t0,
+                     "launches": dict(rc.LAUNCHES, **pc.LAUNCHES), "forwards": len(calls)}
+    return out
+
+
+def phase_tools(torch, rc, pc) -> dict:
+    """The TotalSegmentator tools on the card. (a) The registration
+    (`ops/registration.py`): the 1 mm atlas against a known perturbation of
+    itself (10 degrees in-plane, scale 1.05, a shift of (3, -2, 1.5) voxels),
+    levels (4, 2), 150 steps each: NCC > 0.9 and the mean error at six
+    landmarks < 2 voxels (tests/test_registration.py's bars), the seconds of
+    each level; at fixed parameters on the level-4 volumes, the matrix card
+    against CPU at rtol 1e-6, and one `ncc_loss` and its gradient with
+    respect to that matrix at rtol 1e-4. (b) The commands on the
+    card with synthetic full-width models (ventricle_parts, body 6 mm,
+    total_mr 3 mm beside total_fast in its store): `evans_index.main` on a
+    1 mm head CT (the atlas's central 128 x 160 x 96 mm), `crop_to_body.main`,
+    `get_modality.main` with and without -n and `get_phase.main` on a
+    256 x 256 x 100 anatomy phantom, each run on K1-K3 (launches (4, 1, 1)
+    per network forward) and again on the plain composite (no launch): the
+    same Evans JSON (the reference's command never finds the horns in the
+    ventricle_parts map, ROADMAP Queue 3), the same bbox, the same
+    modality, pi_time within 0.5, each JSON written. Before them, while a
+    host thread writes the models, `evans_index` itself on the atlas at 2 mm
+    turned 10 degrees, with the CT (60 steps a level, as the reference's
+    test), so the registration runs on the card,
+    against the same call on the CPU: both succeed, the index within 0.01,
+    the overview PNG written."""
+    from pathlib import Path
+
+    from scipy import ndimage as ndi
+
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.ops import registration as reg
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.testing import anatomy
+    from boa_tpu_torch.tools import crop_to_body, evans_index, get_modality, get_phase
+    from boa_tpu_torch.weights.store import create_synthetic_model
+
+    res = {}
+    t_phase = time.perf_counter()
+    atlas_img = nifti.load(evans_index._ATLAS_PATH)
+    atlas = np.clip(np.asarray(atlas_img.data, np.float32), 0.0, 100.0)
+
+    # --- (a) the registration at 1 mm on the card
+    t_part = time.perf_counter()
+    moving, r_true, c = _perturbed_atlas(atlas, 10.0, 1.05, (3.0, -2.0, 1.5))
+    spans: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, mat, ncc = reg.register_affine(atlas, moving, levels=(4, 2), steps_per_level=150,
+                                           device="cuda", spans=spans)
+    reg_s = time.perf_counter() - t0
+    marks = [c, c + (30, 0, 0), c - (30, 0, 0), c + (0, 30, 0), c + (0, 0, 24),
+             c + (20, 20, -16)]
+    errs = [float(np.linalg.norm(mat[:3, :3] @ m + mat[:3, 3] - r_true(m))) for m in marks]
+    # one loss and its gradient at fixed parameters on the level-4 volumes.
+    # The loss is piecewise linear in the sample positions, so its gradient
+    # jumps where a voxel crosses a cell of the trilinear gather: the card's
+    # sin/cos/exp round the matrix an ulp away from the CPU's, which moves
+    # the parameters' gradient by up to ~1e-3 relative (as moving the CPU's
+    # own matrix by one ulp does, printed as `grad_ulp_shift_rel`). So the
+    # 1e-4 bar holds the gradient with respect to one matrix, the CPU's,
+    # given to both devices, and the matrices themselves at 1e-6 relative.
+    fixed4 = reg._downsample(torch.from_numpy(atlas), 4)
+    moving4 = reg._downsample(torch.from_numpy(moving.astype(np.float32)), 4)
+    at = [np.array(v, np.float32) for v in ((0.8, -0.5, 0.3), (0.01, -0.02, 0.15),
+                                            (0.04, 0.03, 0.05), (0.0, 0.0, 0.0))]
+
+    def loss_grad(dev, matrix=None, scale=1.0):
+        """(loss, gradient) with respect to the parameters, or to `matrix`."""
+        leaves = reg.AffineParams(*(torch.tensor(v, device=dev, requires_grad=True)
+                                    for v in at))
+        m = reg.params_to_matrix(leaves, fixed4.shape, moving4.shape) * scale
+        if matrix is not None:
+            m = matrix.clone().to(dev).requires_grad_(True)
+        loss = reg.ncc_loss(fixed4.to(dev),
+                            reg.affine_warp(moving4.to(dev), m, tuple(fixed4.shape)))
+        loss.backward()
+        g = m.grad if matrix is not None else torch.cat([t.grad for t in leaves])
+        return loss.detach().item(), g.detach().cpu().numpy().ravel(), m.detach().cpu()
+
+    lp = {dev: loss_grad(dev) for dev in ("cuda", "cpu")}
+    shifted = loss_grad("cpu", scale=1.0 + 1.2e-7)
+    lm = {dev: loss_grad(dev, matrix=lp["cpu"][2]) for dev in ("cuda", "cpu")}
+    loss_rel = abs(lm["cuda"][0] - lm["cpu"][0]) / abs(lm["cpu"][0])
+    res["registration"] = {
+        "shape": list(atlas.shape), "ncc": ncc, "landmark_err_vox": errs,
+        "mean_landmark_err_vox": float(np.mean(errs)), "sec": reg_s, "level_s": spans,
+        "step_ms": {k: v / 150 * 1e3 for k, v in spans.items()},
+        "rotation_deg": np.degrees(np.asarray(params.rotation)).tolist(),
+        "scale": np.exp(np.asarray(params.log_scale)).tolist(),
+        "matrix_max_err": float((lp["cuda"][2] - lp["cpu"][2]).abs().max()),
+        "ncc_loss_card": lm["cuda"][0], "ncc_loss_cpu": lm["cpu"][0],
+        "ncc_loss_rel_err": loss_rel,
+        "grad_matrix_max_rel": float(np.max(np.abs(lm["cuda"][1] - lm["cpu"][1])
+                                            / np.maximum(np.abs(lm["cpu"][1]), 1e-12))),
+        "grad_params_max_rel": float(np.max(np.abs(lp["cuda"][1] - lp["cpu"][1])
+                                            / np.abs(lp["cpu"][1]))),
+        "grad_ulp_shift_rel": float(np.max(np.abs(shifted[1] - lp["cpu"][1])
+                                           / np.abs(lp["cpu"][1]))),
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "tools", "part": "registration", **res["registration"]})
+    assert ncc > 0.9 and float(np.mean(errs)) < 2.0, (ncc, errs)
+    np.testing.assert_allclose(lp["cuda"][2].numpy(), lp["cpu"][2].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert loss_rel <= 1e-4, loss_rel
+    np.testing.assert_allclose(lm["cuda"][1], lm["cpu"][1], rtol=1e-4, atol=1e-7)
+
+    # --- the tools' models, written on a host thread meanwhile
+    from concurrent.futures import ThreadPoolExecutor
+
+    store = _total_fast_store()
+
+    def write_models():
+        for tid, name, trainer, cmap, spacing in TOOL_MODELS:
+            if not list(Path(store.root).glob(f"Dataset{tid:03d}_*")):
+                # no head bias: it would write each 125 MB fold twice
+                names = ["background"] + list(get_class_map(cmap).values())
+                create_synthetic_model(store.root, tid, name, num_classes=len(names),
+                                       trainer=trainer, patch_size=(128, 128, 128),
+                                       spacing=spacing, features=TOTAL_FAST_FEATURES,
+                                       label_names=names)
+
+    t_models = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    models = pool.submit(write_models)
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+
+    # --- evans_index with the CT: the registration on the card against the CPU
+    atlas2 = ndi.zoom(np.asarray(atlas_img.data, np.float32), 0.5, order=1)
+    vent = np.zeros(atlas2.shape, np.uint8)
+    ax, ay, az = (s // 2 for s in atlas2.shape)
+    vent[ax - 12:ax - 3, ay + 10, az] = 1
+    vent[ax + 3:ax + 12, ay + 10, az] = 2
+    rot = {k: ndi.rotate(v, 10.0, axes=(1, 0), reshape=False, order=o) for k, v, o in (
+        ("ct", atlas2, 1), ("vent", vent, 0), ("brain", (atlas2 > 50.0).astype(np.uint8), 0))}
+    ev = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        ev[dev] = evans_index.evans_index(
+            rot["vent"], {1: "frontal_horn_left", 2: "frontal_horn_right"}, rot["brain"] > 0,
+            (2.0, 2.0, 2.0), plot_file=root / f"evans_{dev}.png", ct=rot["ct"],
+            atlas_data=atlas2, atlas_spacing=2.0, registration_steps=60, device=dev)
+        ev[dev + "_s"] = time.perf_counter() - t0
+    res["evans_index"] = {"card": ev["cuda"], "cpu": ev["cpu"], "card_s": ev["cuda_s"],
+                          "cpu_s": ev["cpu_s"],
+                          "png_bytes": (root / "evans_cuda.png").stat().st_size}
+    emit({"phase": "tools", "part": "evans_index", **res["evans_index"]})
+    assert ev["cuda"]["success"] and ev["cpu"]["success"]
+    assert "atlas_registration" in ev["cuda"] and (root / "evans_cuda.png").exists()
+    assert abs(ev["cuda"]["evans_index"] - ev["cpu"]["evans_index"]) <= 0.01
+    # --- (b) the commands on K1-K3 and on the plain composite
+    models.result()   # written while the evans_index check ran
+    models_s = time.perf_counter() - t_models
+    cx, cy, cz = (s // 2 for s in atlas.shape)
+    head = np.asarray(atlas_img.data)[cx - 64:cx + 64, cy - 80:cy + 80, cz - 48:cz + 48]
+    nifti.save(nifti.NiftiImage(data=np.ascontiguousarray(head), affine=np.eye(4)),
+               root / "head.nii.gz")
+    sp = (1.5, 1.5, 3.0)
+    nifti.save(nifti.NiftiImage(data=anatomy.synth_ct((256, 256, 100), sp),
+                                affine=np.diag([*sp, 1.0])), root / "ct.nii.gz")
+    inner = getattr(store, "inner", store)
+
+    def command(main, argv, out_json):
+        def run(mode):
+            main([*argv, "-o", str(root / f"{mode}_{out_json}")], store=inner)
+            return json.loads((root / f"{mode}_{out_json}").read_text())
+        return run
+
+    def crop(mode):
+        crop_to_body.main(["-i", str(root / "ct.nii.gz"), "-o", str(root / f"{mode}.nii.gz"),
+                           "-q"], store=inner)
+        return json.loads((root / f"{mode}_bbox.json").read_text())
+
+    runs = {
+        "evans": command(evans_index.main,
+                         ["-i", str(root / "head.nii.gz"), "-p", str(root / "evans.png")],
+                         "evans.json"),
+        "crop_to_body": crop,
+        "modality": command(get_modality.main, ["-i", str(root / "ct.nii.gz")],
+                            "modality.json"),
+        "modality_n": command(get_modality.main, ["-i", str(root / "ct.nii.gz"), "-n"],
+                              "modality_n.json"),
+        "phase": command(get_phase.main, ["-i", str(root / "ct.nii.gz")], "phase.json"),
+    }
+    launches = {k: 0 for k in REPLACES}
+    for name, run in runs.items():
+        r = _tool_runs(torch, rc, pc, run)
+        k, p = r["kernels"], r["plain"]
+        res[name] = {"sec": k["sec"], "plain_sec": p["sec"], "forwards": k["forwards"],
+                     "launches": k["launches"], "result": k["result"],
+                     "plain_result": p["result"]}
+        emit({"phase": "tools", "part": name, **res[name]})
+        assert k["launches"] == _want_launches(k["forwards"]), (name, k["launches"])
+        assert sum(p["launches"].values()) == 0, (name, p["launches"])
+        for kname in REPLACES:
+            launches[kname] += k["launches"][kname]
+    assert res["evans"]["result"] == res["evans"]["plain_result"]
+    assert res["crop_to_body"]["result"] == res["crop_to_body"]["plain_result"]
+    assert res["crop_to_body"]["result"]["original_shape"] == [256, 256, 100]
+    for name in ("modality", "modality_n"):
+        assert res[name]["result"]["modality"] == res[name]["plain_result"]["modality"]
+    assert res["modality"]["forwards"] == 0
+    assert min(res[n]["forwards"] for n in ("evans", "crop_to_body", "modality_n", "phase")) > 0
+    assert abs(res["phase"]["result"]["pi_time"]
+               - res["phase"]["plain_result"]["pi_time"]) <= 0.5
+
+    pool.shutdown()
+    tmp_dir.cleanup()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "tools", "part": "done", "phase_s": res["phase_s"], "models_s": models_s,
+          "launches": launches})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# serve: the study stream and the deploy-time warm-up
+# ---------------------------------------------------------------------------
+
+SERVE_SHAPE = (512, 512, 150)
+SERVE_STUDIES = 5   # one of them truncated
+
+# a fresh process: the first and second study of one file, after the
+# warm-up command's entry and a warm-up for the study's own model-grid shape
+# (its body-cropped extent), or without either
+_FIRST_STUDY = r"""
+import json, sys, time
+import torch
+from boa_tpu_torch import _build
+from boa_tpu_torch.inference.pipeline import predict_image
+from boa_tpu_torch.io import nifti
+from boa_tpu_torch.ops import cropping
+from boa_tpu_torch.serve import warmup
+from boa_tpu_torch.weights.store import ModelStore
+
+root, path, warm = sys.argv[1], sys.argv[2], sys.argv[3] == "warm"
+store = ModelStore(root)
+img = nifti.load(path)
+out = {}
+if warm:   # the command's entry over two z buckets, then the study's own shape
+    t0 = time.perf_counter()
+    warmup.main(["--task", "total", "--fast", "--xy", "512", "--z-range", "150", "200",
+                 "--weights", root])
+    out["command_s"] = time.perf_counter() - t0
+    cropped, _ = cropping.body_crop_xy(img)
+    t0 = time.perf_counter()
+    out["warmup_s"] = warmup.warmup_task(store, "total", fast=True, xy=cropped.shape[:2],
+                                         z_range=(img.shape[2], img.shape[2]),
+                                         spacing=tuple(float(s) for s in img.zooms))
+    out["warmup_total_s"] = time.perf_counter() - t0
+for key in ("first_s", "second_s"):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict_image(img, "total", store, fast=True, bucket=64, device="cuda")
+    torch.cuda.synchronize()
+    out[key] = time.perf_counter() - t0
+out["build_cached"] = _build.build_info.get("cached")
+out["build_s"] = _build.build_info.get("seconds")
+print(json.dumps(out))
+"""
+
+
+def phase_serve(torch, rc, pc) -> dict:
+    """The serving layer on the card with the full-width total_fast store.
+    (a) The stream: five 512x512x150 .nii.gz files (four anatomy phantoms
+    and a truncated copy of the first) through `StreamRunner(task="total", fast=True)`
+    (decode and write on host threads, the predict on this thread), after
+    one warm-up study: four studies, the corrupt one failing alone, each
+    study's labels against a serial `predict_image` of the same file: equal
+    on the plain composite (the first study through both), and on the
+    kernels, whose sums are atomic, apart at no more than 1e-4 of the
+    voxels or three times the kernels' own run-to-run difference (the first
+    study predicted twice); volumes per minute against the serial loop
+    (load, predict, save one after the other), the launches (4, 1, 1) per
+    network forward. (b) The warm-up: in a fresh process the command's
+    entry (`warmup.main`, `--task total --fast --xy 512 --z-range 150 200`:
+    two buckets) and a warm-up of the study's own shape, then the first and
+    second study of one phantom, against a fresh process not warmed, with
+    the kernel build's cache state; `--bake --stamp` twice in this process,
+    the second returning without a launch."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.serve import warmup
+    from boa_tpu_torch.serve.stream import StreamRunner, StudyJob
+    from boa_tpu_torch.testing import anatomy
+
+    res = {}
+    t_phase = time.perf_counter()
+    store = _total_fast_store()
+    inner = getattr(store, "inner", store)
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+    sp = (1.5, 1.5, 3.0)
+
+    # --- (a) the stream against the serial loop
+    t_part = time.perf_counter()
+
+    def write(k):
+        nifti.save(nifti.NiftiImage(data=anatomy.synth_ct(SERVE_SHAPE, sp, seed=k),
+                                    affine=np.diag([*sp, 1.0])), root / f"s{k}.nii.gz")
+
+    with ThreadPoolExecutor(SERVE_STUDIES) as ex:
+        list(ex.map(write, [k for k in range(SERVE_STUDIES) if k != 3]))
+    full = (root / "s0.nii.gz").read_bytes()
+    (root / "s3.nii.gz").write_bytes(full[:len(full) // 2])
+    write_s = time.perf_counter() - t_part
+    jobs = [StudyJob(study_id=f"s{k}", input_path=root / f"s{k}.nii.gz",
+                     output_dir=root / "stream" / f"s{k}") for k in range(SERVE_STUDIES)]
+    runner = StreamRunner(store=inner, task="total", fast=True, device="cuda")
+    runner.run(jobs[:1])   # warm: the weights and the shapes, as a served stream is
+    rc.reset_launches()
+    pc.reset_launches()
+    calls: list = []
+    with _counting_forwards(calls):
+        stats = runner.run(jobs)
+    launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    good = [k for k in range(SERVE_STUDIES) if k != 3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = {}
+    for k in good:
+        img = nifti.load(root / f"s{k}.nii.gz")
+        r = predict_image(img, "total", inner, fast=True, bucket=64, device="cuda")
+        nifti.save(r.seg, root / f"serial_s{k}.nii.gz")
+        serial[k] = np.asarray(r.seg.data)
+    serial_s = time.perf_counter() - t0
+    differ = {}
+    for k in good:
+        got = np.asarray(nifti.load(root / "stream" / f"s{k}" / "total.nii.gz").data)
+        differ[k] = float((got != serial[k]).mean())
+    # the kernels' own run-to-run difference (their sums are atomic): the
+    # first study once more; and the stream against the serial call on the
+    # plain composite (fixed-order sums), where they must be equal
+    img0 = nifti.load(root / "s0.nii.gz")
+    rerun = predict_image(img0, "total", inner, fast=True, bucket=64, device="cuda")
+    rerun_differ = float((np.asarray(rerun.seg.data) != serial[0]).mean())
+    with _plain_composite(rc):
+        StreamRunner(store=inner, task="total", fast=True, device="cuda").run(
+            [StudyJob(study_id="plain", input_path=root / "s0.nii.gz",
+                      output_dir=root / "plain")])
+        plain = predict_image(img0, "total", inner, fast=True, bucket=64, device="cuda")
+    plain_equal = bool(np.array_equal(
+        np.asarray(nifti.load(root / "plain" / "total.nii.gz").data),
+        np.asarray(plain.seg.data)))
+    res["stream"] = {
+        "shape": list(SERVE_SHAPE), "studies": SERVE_STUDIES, "n_studies": stats.n_studies,
+        "stream_s": stats.total_s, "per_study_s": stats.per_study_s,
+        "volumes_per_min": stats.volumes_per_min, "serial_s": serial_s,
+        "serial_volumes_per_min": len(good) / serial_s * 60.0, "write_inputs_s": write_s,
+        "forwards": len(calls), "launches": launches, "differ_share": differ,
+        "rerun_differ_share": rerun_differ, "plain_stream_equal_serial": plain_equal,
+        "plain_vs_kernels_differ_share": float(
+            (np.asarray(plain.seg.data) != serial[0]).mean()),
+        "classes_present": int(len(np.unique(serial[0]))),
+        "part_s": time.perf_counter() - t_part}
+    emit({"phase": "serve", "part": "stream", **res["stream"]})
+    assert stats.n_studies == SERVE_STUDIES - 1, stats.n_studies
+    assert not (root / "stream" / "s3").exists()
+    assert len(calls) > 0 and launches == _want_launches(len(calls)), launches
+    assert plain_equal
+    # on the kernels the stream adds nothing to their run-to-run difference
+    assert max(differ.values()) <= max(1e-4, 3 * rerun_differ), (differ, rerun_differ)
+
+    # --- (b) the warm-up in fresh processes
+    t_part = time.perf_counter()
+    env = _cli_env(BOA_TPU_CONFIG_DIR=str(root / "cfg"), BOA_WEIGHTS_PATH=str(store.root))
+    first = {}
+    for mode in ("warm", "cold"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _FIRST_STUDY, str(store.root),
+                            str(root / "s0.nii.gz"), mode],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, env=env, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        out = r.stdout.strip().splitlines()
+        first[mode] = dict(json.loads(out[-1]), process_s=time.perf_counter() - t0)
+        if mode == "warm":
+            warmed = [ln for ln in out if ln.startswith("warmed ")][-1]
+    stamp = root / "warm.stamp"
+    bake = []
+    for _ in range(2):
+        rc.reset_launches()
+        pc.reset_launches()
+        t0 = time.perf_counter()
+        warmup.main(["--bake", "--stamp", str(stamp), "--xy", "512", "--z-range", "150", "150",
+                     "--weights", str(store.root)])
+        bake.append({"sec": time.perf_counter() - t0,
+                     "launches": sum(dict(rc.LAUNCHES, **pc.LAUNCHES).values())})
+    res["warmup"] = {"cli": warmed, "first_study": first,
+                     "bake": bake, "part_s": time.perf_counter() - t_part}
+    emit({"phase": "serve", "part": "warmup", **res["warmup"]})
+    assert warmed.startswith("warmed 2 bucketed shapes"), warmed
+    assert first["warm"]["build_cached"] and first["cold"]["build_cached"], first
+    assert bake[0]["launches"] > 0 and bake[1]["launches"] == 0 and stamp.exists(), bake
+    tmp_dir.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "serve", "part": "done", "phase_s": res["phase_s"]})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -3018,7 +3499,8 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
             "library_ms": sum(c["library_ms"] for c in mine)}
 
 
-def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine) -> list[dict]:
+def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, tools,
+             serve) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -3026,7 +3508,9 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine) -> 
                                 finish_launches=fused["finish_launches"],
                                 launches_cli=cli["study"]["launches"][name],
                                 launches_api=api["nifti"]["launches"][name],
-                                launches_engine=engine["pth"]["launches"][name]))
+                                launches_engine=engine["pth"]["launches"][name],
+                                launches_tools=tools["launches"][name],
+                                launches_serve=serve["stream"]["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -3043,8 +3527,11 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine) -> 
         row["launches_bca"] = bca["study"]["launches"][name]
         row["launches_cli"] = cli["study"]["launches"][name]
         row["launches_api"] = api["nifti"]["launches"][name]
-        # engine (a): 24 forwards of a batch of 8 flips (192 network evaluations)
+        # engine (a): 12 forwards of a batch of 8 flips (96 network evaluations)
         row["launches_engine"] = engine["pth"]["launches"][name]
+        # the tools' commands (b) on K1-K3, and the stream of serve (a)
+        row["launches_tools"] = tools["launches"][name]
+        row["launches_serve"] = serve["stream"]["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -3103,9 +3590,13 @@ def main() -> int:
         api = phase_api(torch, rc, pc)
     if "engine" in phases:
         engine = phase_engine(torch, rc, pc)
+    if "tools" in phases:
+        tools = phase_tools(torch, rc, pc)
+    if "serve" in phases:
+        serve = phase_serve(torch, rc, pc)
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api,
-                                  engine)})
+                                  engine, tools, serve)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

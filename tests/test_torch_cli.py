@@ -306,14 +306,17 @@ def test_cli_anatomy_hook_cnr_golden(tmp_path):
 
 
 @pytest.mark.parametrize("flags,env,match", [
-    # --radiomics raised here until it was ported (M9 (iii)): tests/test_torch_api.py
-    # runs it; the id keeps the name this case had beside it
+    # --radiomics raised here until it was ported (M9 (iii)), a trained
+    # contrast bundle until M9 (vi): both now reach the models; the id keeps
+    # the name this case had
     pytest.param(["-m", "bca", "--bca-no-pdf"], {"BOA_CONTRAST_MODEL": "bundle.pkl"},
-                 r"M9 \(vi\)", id="flags1-env1-M9 \\(vi\\)"),
+                 "a model ran", id="flags1-env1-M9 \\(vi\\)"),
 ])
 def test_unported_inputs_raise_before_any_model(tmp_path, monkeypatch, flags, env, match):
-    """A trained contrast bundle (the file exists) raises NotImplementedError
-    naming its ROADMAP item before any model runs or any file is written."""
+    """An input that raised NotImplementedError before any model until it
+    was ported now goes on to the models: a trained contrast bundle that
+    exists no longer refuses the study (tests/test_torch_contrast.py holds
+    its rows against the reference's)."""
     def no_models(*a, **kw):
         raise AssertionError("a model ran")
 
@@ -323,9 +326,8 @@ def test_unported_inputs_raise_before_any_model(tmp_path, monkeypatch, flags, en
         monkeypatch.setenv(k, str(tmp_path / v))
     study = tmp_path / "ct.nii.gz"
     tn.save(tn.NiftiImage(data=np.zeros((8, 8, 8), np.int16), affine=np.eye(4)), study)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(AssertionError, match=match):
         tcli.run(["-i", str(study), "-o", str(tmp_path / "out"), "--device", "cpu", *flags])
-    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("flags,render", [

@@ -1,11 +1,13 @@
 """The port's contrast prediction against the reference's, on the CPU: the
 UBJSON decoder (io/ubjson.py), the numpy tree walker (compute/xgb.py) on
 the vendored phase pickle and GIT folds, the pi-time phase
-(tools/get_phase.py) and `compute/contrast.py:predict`, on features made
-from a seed with numpy.
+(tools/get_phase.py), `compute/contrast.py:predict` with and without a
+trained sklearn bundle, `analyze_ct`'s contrast rows with a bundle, and the
+GBM fitter (compute/gbm.py), on features made from a seed with numpy.
 
 Bars: tree margins and probabilities within 1e-6; the feature dicts and
-`predict`'s result dicts equal (NaN where the reference has NaN).
+`predict`'s result dicts equal (NaN where the reference has NaN); a fitted
+bundle's probabilities and the fitter's model documents equal.
 """
 
 import json
@@ -29,9 +31,13 @@ RES = tphase._VENDORED_PHASE_PKL.parent
 
 
 def test_resources_are_byte_copies():
-    """The port ships its own copies of the reference's classifier files."""
-    names = ["contrast_phase_classifiers_2024_07_19.pkl"] + [
-        f"git_contrast_classifiers_boa_tpu.json.{i}" for i in range(5)]
+    """The port ships its own copies of the reference's classifier files,
+    the modality folds and the brain atlas."""
+    names = ["contrast_phase_classifiers_2024_07_19.pkl", "ct_brain_atlas_1mm.nii.gz"] + [
+        f"{stem}.{i}" for stem in ("git_contrast_classifiers_boa_tpu.json",
+                                   "modality_classifiers_2025_02_24.json",
+                                   "modality_classifiers_normalized_2025_02_24.json")
+        for i in range(5)]
     assert sorted(p.name for p in RES.iterdir()) == sorted(names)
     for name in names:
         assert (RES / name).read_bytes() == \
@@ -238,23 +244,103 @@ def test_predict_without_measurements_matches_reference(tmp_path):
     assert tcon._heuristic_phase(f) == jcon._heuristic_phase(f)
 
 
-def test_contrast_bundle_raises(tmp_path, monkeypatch):
-    """A trained sklearn bundle is not ported: an existing file named by
-    BOA_CONTRAST_MODEL or an explicit path, or the home default, raises,
-    naming ROADMAP."""
-    (tmp_path / "total-measurements.json").write_text(json.dumps(_measurements(1)))
-    (tmp_path / "bundle.pkl").write_bytes(b"")
+def _bundle_data(seed: int, n: int = 48):
+    """Seeded feature rows (a share NaN, as absent organs give) with phase
+    and GIT labels that depend on them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(100, 80, (n, len(tcon.FEATURE_ORGANS) * len(tcon.FEATURE_STATS)))
+    x[rng.random(x.shape) < 0.1] = np.nan
+    phase = np.digitize(np.nan_to_num(x[:, 2], nan=0.0), [60.0, 140.0])
+    git = (np.nan_to_num(x[:, -3], nan=0.0) > 100.0).astype(int)
+    return x.astype(np.float32), phase, git
+
+
+@pytest.fixture()
+def one_thread():
+    """sklearn's fits and predictions on one thread: the suite's workers
+    share the cores, and the small models gain nothing from more."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(1):
+        yield
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_contrast_bundle_scores_as_reference(tmp_path, monkeypatch):
+    """A bundle fitted by the port's `fit_contrast_model` equals the
+    reference's on the same rows (the same sklearn models, so the same
+    probabilities to the bit), and `predict` with it, named by
+    BOA_CONTRAST_MODEL, an explicit path or the home default, gives the
+    reference's result dict, `git_classifier_is_standin` False."""
+    x, phase, git = _bundle_data(3)
+    tb = tcon.fit_contrast_model(x, phase, git, n_ensemble=2, out_path=tmp_path / "t.pkl")
+    jb = jcon.fit_contrast_model(x, phase, git, n_ensemble=2, out_path=tmp_path / "j.pkl")
+    assert tb["feature_names"] == jb["feature_names"]
+    probe = np.nan_to_num(_bundle_data(4, 12)[0], nan=-1024.0)
+    for key in ("phase_models", "git_models"):
+        for tm, jm in zip(tb[key], jb[key], strict=True):
+            np.testing.assert_array_equal(tm.predict_proba(probe), jm.predict_proba(probe))
     monkeypatch.setenv("HOME", str(tmp_path))
-    monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "bundle.pkl"))
-    with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
-        tcon.predict(None, tmp_path)
-    monkeypatch.delenv("BOA_CONTRAST_MODEL")
-    with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
-        tcon.predict(None, tmp_path, model_path=tmp_path / "bundle.pkl")
+    for seed in (5, 6):
+        (tmp_path / "total-measurements.json").write_text(json.dumps(_measurements(seed)))
+        monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "t.pkl"))
+        got = tcon.predict(None, tmp_path)
+        monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "j.pkl"))
+        _same_result(got, jcon.predict(None, tmp_path))
+        assert not got["git_classifier_is_standin"]
+        monkeypatch.delenv("BOA_CONTRAST_MODEL")
+        _same_result(tcon.predict(None, tmp_path, model_path=tmp_path / "t.pkl"),
+                     jcon.predict(None, tmp_path, model_path=tmp_path / "j.pkl"))
     (tmp_path / ".boa_tpu").mkdir()
-    (tmp_path / ".boa_tpu" / "contrast_model.pkl").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=r"M9 \(vi\)"):
-        tcon.predict(None, tmp_path)
+    shutil.copy(tmp_path / "t.pkl", tmp_path / ".boa_tpu" / "contrast_model.pkl")
+    _same_result(tcon.predict(None, tmp_path), jcon.predict(None, tmp_path))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("bundle", ["fitted", "unreadable"])
+def test_analyze_ct_with_contrast_bundle_matches_reference(tmp_path, monkeypatch, bundle):
+    """`analyze_ct` with BOA_CONTRAST_MODEL set, through the anatomy
+    phantom's hook in both packages: a fitted bundle gives the reference's
+    contrast rows and stats; one that cannot be read (as a sklearn pickle
+    where sklearn is missing) fails the contrast stage alone, as in the
+    reference: the workbook is written without contrast rows and the
+    traceback lands in debug_information.txt."""
+    from boa_tpu.commands import analyze_ct as janalyze
+    from boa_tpu.io import xlsx as jx
+    from boa_tpu.testing import anatomy as janat
+    from boa_tpu_torch.commands import analyze_ct as tanalyze
+    from boa_tpu_torch.io import nifti as tn
+    from boa_tpu_torch.testing import anatomy as tanat
+
+    monkeypatch.setenv("BOA_TPU_CONFIG_DIR", str(tmp_path / "cfg"))
+    monkeypatch.delenv("BOA_GIT_MODEL", raising=False)
+    path = tmp_path / "bundle.pkl"
+    if bundle == "fitted":
+        tcon.fit_contrast_model(*_bundle_data(7), n_ensemble=2, out_path=path)
+    else:
+        path.write_bytes(b"")
+    monkeypatch.setenv("BOA_CONTRAST_MODEL", str(path))
+    shape, spacing = (96, 96, 32), (3.5, 3.5, 9.0)
+    tn.save(tn.NiftiImage(data=tanat.synth_ct(shape=shape, spacing=spacing),
+                          affine=np.diag([*spacing, 1.0])), tmp_path / "ct.nii.gz")
+    kw = dict(models=["total"], bca_pdf=False, total_preview=False, fast_total=True)
+    want_path, want_stats = janalyze(tmp_path / "ct.nii.gz", tmp_path / "ref", tmp_path / "ref",
+                                     fake_predict=janat.fake_predict_factory(), **kw)
+    got_path, got_stats = tanalyze(tmp_path / "ct.nii.gz", tmp_path / "got", tmp_path / "got",
+                                   fake_predict=tanat.fake_predict_factory(), device="cpu", **kw)
+    rows = [{r[0]: r[1] for r in jx.read_xlsx(p)["info"] if r and r[0].startswith("Predicted")}
+            for p in (got_path, want_path)]
+    assert rows[0] == rows[1]
+    for key in ("iv_contrast_phase", "git_contrast"):
+        assert got_stats.get(key) == want_stats.get(key), key
+    debug = (tmp_path / "got" / "debug_information.txt").read_text()
+    if bundle == "fitted":
+        assert set(rows[0]) == {"PredictedContrastPhase", "PredictedContrastInGIT"}
+        assert "Contrast phase prediction failed" not in debug
+    else:
+        assert rows[0] == {} and "iv_contrast_phase" not in got_stats
+        assert "Contrast phase prediction failed" in debug and "Traceback" in debug
+        assert (tmp_path / "got" / "total.nii.gz").exists()
 
 
 def test_missing_bundle_scores_vendored_folds(tmp_path, monkeypatch):
@@ -264,9 +350,30 @@ def test_missing_bundle_scores_vendored_folds(tmp_path, monkeypatch):
     (tmp_path / "total-measurements.json").write_text(json.dumps(_measurements(2)))
     monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.setenv("BOA_CONTRAST_MODEL", str(tmp_path / "missing.pkl"))
-    tcon.check_supported()
     got = tcon.predict(None, tmp_path)
     _same_result(got, jcon.predict(None, tmp_path))
     assert got["git_classifier_is_standin"]
     _same_result(tcon.predict(None, tmp_path, model_path=tmp_path / "gone.pkl"),
                  jcon.predict(None, tmp_path, model_path=tmp_path / "gone.pkl"))
+
+
+@pytest.mark.parametrize("seed,subsample", [(7, 1.0), (11, 0.7)])
+def test_fit_gbtree_document_equals_reference(tmp_path, seed, subsample):
+    """`compute/gbm.py`: the same rows (NaN among them) and seed give the
+    reference's model document, and `save_model_doc` its bytes."""
+    from boa_tpu.compute import gbm as jgbm
+    from boa_tpu_torch.compute import gbm as tgbm
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (160, 5)).astype(np.float32)
+    y = ((x[:, 0] + 0.5 * x[:, 2]) > 0).astype(int)
+    x[rng.random(x.shape) < 0.08] = np.nan
+    kw = dict(n_rounds=8, max_depth=3, subsample=subsample, seed=seed,
+              feature_names=[f"f{i}" for i in range(5)])
+    got, want = tgbm.fit_gbtree(x, y, **kw), jgbm.fit_gbtree(x, y, **kw)
+    assert got == want
+    tgbm.save_model_doc(got, tmp_path / "t.json")
+    jgbm.save_model_doc(want, tmp_path / "j.json")
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    np.testing.assert_array_equal(txgb.TreeEnsemble.from_model_doc(got).predict(x),
+                                  jxgb.TreeEnsemble.from_model_doc(want).predict(x))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of boa_tpu_torch
-loads neither JAX nor the JAX package, nor pandas, cv2 or matplotlib (which
-the card machine is not known to have), and its entry points default to the
+loads neither JAX nor the JAX package, nor pandas, cv2, matplotlib or sklearn
+(which the card machine is not known to have; a contrast bundle imports
+sklearn when it is read), and its entry points default to the
 card and raise without it unless the caller asks for the CPU."""
 
 import re
@@ -19,7 +20,7 @@ import importlib, pkgutil, sys
 import boa_tpu_torch
 for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
     importlib.import_module(m.name)
-banned = ("jax", "jaxlib", "boa_tpu", "pandas", "cv2", "matplotlib")
+banned = ("jax", "jaxlib", "boa_tpu", "pandas", "cv2", "matplotlib", "sklearn")
 bad = [k for k in sys.modules if k.split(".")[0] in banned]
 front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands",
          "boa_tpu_torch.python_api", "boa_tpu_torch.measure.radiomics",
@@ -30,7 +31,11 @@ front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"
          "boa_tpu_torch.engine", "boa_tpu_torch.engine.predict",
          "boa_tpu_torch.engine.ensembling", "boa_tpu_torch.engine.evaluation",
          "boa_tpu_torch.engine.fingerprint", "boa_tpu_torch.train",
-         "boa_tpu_torch.train.variants", "boa_tpu_torch.testing.nnunet_checkpoint"}
+         "boa_tpu_torch.train.variants", "boa_tpu_torch.testing.nnunet_checkpoint",
+         "boa_tpu_torch.serve", "boa_tpu_torch.serve.stream", "boa_tpu_torch.serve.warmup",
+         "boa_tpu_torch.ops.registration", "boa_tpu_torch.tools.evans_index",
+         "boa_tpu_torch.tools.crop_to_body", "boa_tpu_torch.tools.get_modality",
+         "boa_tpu_torch.tools.get_phase", "boa_tpu_torch.compute.gbm"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -42,7 +47,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     commands), the TotalSegmentator API's (python_api, radiomics, shape,
     the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) and
     the model-folder tools' (engine/, train/variants.py, the checkpoint
-    writer in testing/) among them."""
+    writer in testing/), the serving layer's (serve/), the TotalSegmentator
+    tools' with the registration and the GBM fitter among them."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
