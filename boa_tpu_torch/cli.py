@@ -60,7 +60,7 @@ def get_parser() -> argparse.ArgumentParser:
                              "license-gated models)")
     parser.add_argument("--radiomics", default=False, action="store_true",
                         help="Calculate radiomics features for all "
-                             "segmentations (not ported yet)")
+                             "segmentations")
     parser.add_argument("--nnunet-verbose", default=False, action="store_true",
                         help="Print all the output logs of the model engine")
     parser.add_argument("--fast-total", default=False, action="store_true",

@@ -16,6 +16,36 @@ from typing import Any
 from boa_tpu_torch.models.unet import ArchConfig, arch_config_from_plans
 
 
+def _reconstruct_old_arch(conf: dict) -> dict:
+    """Old-plans (pre-2.2) -> new 'architecture' dict, as nnU-Net's
+    `plans_handler.py:36-97` rebuilds it."""
+    unet_class_name = conf["UNet_class_name"]
+    class_path = {
+        "PlainConvUNet": "dynamic_network_architectures.architectures.unet.PlainConvUNet",
+        "ResidualEncoderUNet":
+            "dynamic_network_architectures.architectures.residual_unet.ResidualEncoderUNet",
+    }[unet_class_name]
+    n_stages = len(conf["n_conv_per_stage_encoder"])
+    convs_or_blocks = ("n_conv_per_stage" if unet_class_name == "PlainConvUNet"
+                       else "n_blocks_per_stage")
+    return {
+        "network_class_name": class_path,
+        "arch_kwargs": {
+            "n_stages": n_stages,
+            "features_per_stage": [
+                min(conf["UNet_base_num_features"] * 2**i, conf["unet_max_num_features"])
+                for i in range(n_stages)
+            ],
+            "kernel_sizes": conf["conv_kernel_sizes"],
+            "strides": conf["pool_op_kernel_sizes"],
+            convs_or_blocks: conf["n_conv_per_stage_encoder"],
+            "n_conv_per_stage_decoder": conf["n_conv_per_stage_decoder"],
+            "conv_bias": True,
+            "norm_op_kwargs": {"eps": 1e-05, "affine": True},
+        },
+    }
+
+
 @dataclass
 class ModelPlans:
     """Parsed view of one (plans.json, dataset.json, configuration) triple."""
@@ -36,8 +66,7 @@ class ModelPlans:
             base.update(conf)
             conf = base
         if "architecture" not in conf:
-            raise ValueError("plans without an 'architecture' entry (pre-2.2 "
-                             "nnU-Net plans) are not supported by the port yet")
+            conf["architecture"] = _reconstruct_old_arch(conf)
         self.conf = conf
 
     @property

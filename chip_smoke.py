@@ -111,7 +111,7 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               file agrees > 0.99 with the same command in this process on the
               CPU, and the prediction counter (BOA_TPU_CONFIG_DIR) rose by the
               number of predict_image calls; (b) `analyze_ct` through the
-              anatomy phantom's hook at 512x512x300 (`total+bca`, CNR
+              anatomy phantom's hook at 512x512x150 (`total+bca`, CNR
               adjustment, contrast on) on the card and on the CPU: every
               numeric cell of every sheet within 1e-6 relative, strings and
               empty cells equal; (c) `cli.run` in this process on 8 (c)'s
@@ -185,12 +185,12 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               checkpoints (`testing/nnunet_checkpoint.py`) at full width:
               (a) total_fast's network (6-stage PlainConvUNet 32->320, 118
               classes, 128^3 patch, 3 mm plan) as a results folder with two
-              `checkpoint_final.pth` folds, one 224x192x96 case at 3 mm,
+              `checkpoint_final.pth` folds, one 192x192x96 case at 3 mm,
               nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
               --save_probabilities`: the conversion's, the cached .npz load's,
-              the predict's and the export's seconds, peak memory; 12 network
-              forwards (6 tiles x 2 folds, the 8 flips of a tile as one
-              batch: 96 evaluations) counted from the model's side, K1/K2/K3
+              the predict's and the export's seconds, peak memory; 8 network
+              forwards (4 tiles x 2 folds, the 8 flips of a tile as one
+              batch: 64 evaluations) counted from the model's side, K1/K2/K3
               launches (4, 1, 1) per forward with the split plan's finishing
               passes, no K5; the labels an argmax of the .npz (differences
               only at float16 ties, counted); the folder again without
@@ -233,13 +233,27 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               command's entry over two buckets and the study's own shape in
               a fresh process, its first study against a fresh process not
               warmed, `--bake --stamp` twice (the second without a launch)
+16. pacs    - the PACS front door as a hospital deploys it: Orthanc's
+              STABLE_SERIES callback (`pacs/on_change.py`) -> the local queue
+              -> the worker (`pacs/worker.py`, on the card: no DEVICE) -> the
+              DICOMweb, SMB and Postgres sinks, around stdlib HTTP servers for
+              Orthanc's REST API and STOW-RS and stand-in `orthanc`,
+              `smbclient` and `psycopg2` modules: (A) dicom (c)'s 512x512x300
+              series (written here when that phase did not run) on the
+              full-width total_fast store: the SEG received over STOW-RS
+              agrees > 0.99 with dicom (c)'s labels, the workbook, preview and
+              debug file on the share, the row computed with its times; (B)
+              five instances, rejected by the gate, row `none-<max id>`; (C) 20
+              instances cut short: "BOA analysis failed" on the share; every
+              column one of deploy/init.sql's, DELETE for all three, launches
+              (A)'s tiles x (4, 1, 1) with no K5
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render, api, engine, tools, serve) only those phases run after the device
+dicom, render, api, engine, tools, serve, pacs) only those phases run after the device
 phase, and the kernel summary line is left out. Each phase prints one JSON line
 (the total, measure, bca, cli, dicom, render, api, engine, tools and serve phases
 one per part).
@@ -247,8 +261,9 @@ Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
 of api (a), `launches_engine` engine (a)'s predict, `launches_tools` the
-tools' commands of tools (b), `launches_serve` the stream of serve (a); K5's
-row has the last five too) and, last,
+tools' commands of tools (b), `launches_serve` the stream of serve (a),
+`launches_pacs` the PACS worker's series (A); K5's row has the last six too)
+and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
 exits non-zero when CUDA is unavailable or the package is missing.
@@ -270,7 +285,7 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render", "api", "engine", "tools", "serve")
+              "dicom", "render", "api", "engine", "tools", "serve", "pacs")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -280,6 +295,7 @@ SMALL_RUN_FEATURES = (32, 64)
 SMALL_RUN_SHAPE = (96, 96, 32)   # their CT: 32 slices, cut from 64 for the same reason
 STUDY_SHAPE = (512, 512, 300)   # the bench's CT, as the measure phase's (b) and (c) use it
 API_SHAPE = (512, 512, 150)     # api (a)'s phantom: 150 slices, cut from 300 for the time limit
+SHEETS_SHAPE = (512, 512, 150)  # cli (b)'s phantom: 150 slices, cut from 300 for the same reason
 PART_IDS = (291, 292, 293, 294, 295)   # the sub-models of `total`, merged in order
 BACKGROUND_LEAD = 1.0   # background's head bias over the largest other, per part
 REPLACES = {
@@ -1844,7 +1860,7 @@ def phase_cli(torch, rc, pc) -> dict:
     the debug file names the card, labels agree > 0.99 with the same run
     in-process on the CPU, the prediction counter rose by the number of
     predict_image calls; (b) `analyze_ct` through the anatomy phantom's hook
-    at 512x512x300 (statistics, the engine and the BCA passes on the device)
+    at 512x512x150 (statistics, the engine and the BCA passes on the device)
     on the card and on the CPU: every numeric cell of every sheet within
     1e-6 relative, strings and empty cells equal; (c) `cli.run` in-process on
     bca (c)'s 512x512x300 file and stores, `-m total+bca --fast-total
@@ -1943,7 +1959,7 @@ def phase_cli(torch, rc, pc) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         spacing = (1.5, 1.5, 3.0)
-        nifti.save(nifti.NiftiImage(data=anatomy.synth_ct(STUDY_SHAPE, spacing),
+        nifti.save(nifti.NiftiImage(data=anatomy.synth_ct(SHEETS_SHAPE, spacing),
                                     affine=np.diag([*spacing, 1.0])), tmp / "ct.nii.gz")
         kw = dict(models=["total", "bca"], fast_total=True, bca_pdf=False,
                   total_preview=False, cnr_adjustment=True)
@@ -1964,7 +1980,7 @@ def phase_cli(torch, rc, pc) -> dict:
     emit({"phase": "cli", "part": "sheets", **res["sheets"]})
     assert list(sheets["cuda"]) == CLI_SHEETS
     assert res["sheets"]["max_rel"] <= 1e-6, res["sheets"]["max_rel"]
-    assert len(sheets["cuda"]["bca-slice-measurements"]) == STUDY_SHAPE[2] + 1
+    assert len(sheets["cuda"]["bca-slice-measurements"]) == SHEETS_SHAPE[2] + 1
     assert any(r[0] == "PredictedContrastPhase" for r in sheets["cuda"]["info"])
 
     # --- (c) the full-width study through cli.run, after bca (c)'s warm-up
@@ -2627,10 +2643,10 @@ def phase_api(torch, rc, pc) -> dict:
 # engine: the model-folder predictor on real-format .pth checkpoints
 # ---------------------------------------------------------------------------
 
-# at 3 mm: 6 tiles of 128^3 at step 0.5 (96 slices, cut from 160 for the
-# script's time limit)
-ENGINE_CASE = (224, 192, 96)
-ENGINE_TILES = 6
+# at 3 mm: 4 tiles of 128^3 at step 0.5 (96 slices, cut from 160, and 192
+# columns, cut from 224, for the script's time limit)
+ENGINE_CASE = (192, 192, 96)
+ENGINE_TILES = 4
 ENGINE_MIRRORS = 8              # nnUNetTrainer's mirror axes (0, 1, 2): 2^3 flips
 RESENC_M = dict(features=(32, 64, 128, 256, 320, 320), blocks=(1, 3, 4, 6, 6, 6))
 TWO_D = dict(features=(32, 64, 128, 256, 512, 512, 512, 512), patch=(512, 512),
@@ -2811,12 +2827,12 @@ def phase_engine(torch, rc, pc) -> dict:
     on real-format nnU-Net checkpoints at full width, weights random from
     fixed seeds: (a) total_fast's network (6-stage PlainConvUNet 32->320,
     118 classes, 128^3 patch, 3 mm plan) as a results folder whose two folds
-    hold `checkpoint_final.pth`, one 224x192x96 case at 3 mm,
+    hold `checkpoint_final.pth`, one 192x192x96 case at 3 mm,
     nnUNetTrainer's mirror axes, `-f 0 1 -step_size 0.5
     --save_probabilities`: the folds converted (and cached as .npz), the
     cached load, the predict with its launches (K1/K2/K3 = (4, 1, 1) per
-    network forward, 6 tiles x 2 folds forwards of the 8 flips as one
-    batch: 96 network evaluations), the labels an argmax of the .npz; the
+    network forward, 4 tiles x 2 folds forwards of the 8 flips as one
+    batch: 64 network evaluations), the labels an argmax of the .npz; the
     folder without probabilities twice in this process, then imported into
     a store (the same parameters, bit for bit) and `-d` run as a
     subprocess: labels within 1e-4 of the folder's (two runs of one model
@@ -3482,6 +3498,402 @@ def phase_serve(torch, rc, pc) -> dict:
     return res
 
 
+PACS_MAX_ID = 41   # the stand-in monitoring DB's MAX(id)
+
+
+def _pacs_server(handler):
+    """A stdlib HTTP server on a free localhost port, served on a daemon
+    thread; the caller shuts it down."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def _pacs_fakes(state: dict, share):
+    """The deployment's services around the worker: Orthanc's REST API over
+    `state["series"]` (id -> (simplified tags, {instance: bytes or path})),
+    a STOW-RS receiver keeping its posts, and stand-in `orthanc` (Orthanc's
+    embedded runtime, backed by the same data), `smbclient` (copies into the
+    local folder `share`; only the network copy is replaced) and `psycopg2`
+    (records every statement) modules. Returns (orthanc server, STOW server,
+    {module name: stand-in})."""
+    import json as _json
+    import types
+    from http.server import BaseHTTPRequestHandler
+    from pathlib import Path
+
+    def instance(inst):
+        for tags, files in state["series"].values():
+            if inst in files:
+                data = files[inst]
+                return tags, data if isinstance(data, bytes) else Path(data).read_bytes()
+        raise KeyError(inst)
+
+    def rest_get(path: str) -> bytes:
+        parts = path.split("?")[0].split("/")
+        if parts[1] == "series":
+            return _json.dumps({"Instances": list(state["series"][parts[2]][1])}).encode()
+        if parts[3] == "metadata":
+            return _json.dumps({"CalledAET": "BOA"}).encode()
+        if parts[3] == "simplified-tags":
+            return _json.dumps(instance(parts[2])[0]).encode()
+        if parts[3] == "file":
+            return instance(parts[2])[1]
+        raise KeyError(path)
+
+    class Orthanc(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            try:
+                body = rest_get(self.path)
+            except (KeyError, IndexError):
+                self.send_response(404)
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_DELETE(self):
+            state["deleted"].append(self.path)
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+    class Stow(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            state["stow"].append((self.path, self.headers["Content-Type"], body))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+    orthanc = types.ModuleType("orthanc")
+    orthanc.logs, orthanc.callbacks = [], []
+    orthanc.LogWarning = orthanc.logs.append
+    orthanc.ChangeType = types.SimpleNamespace(STABLE_SERIES=9)
+    orthanc.RegisterOnChangeCallback = orthanc.callbacks.append
+    orthanc.RestApiGet = lambda path: rest_get(path).decode()
+    orthanc.RestApiDelete = state["deleted"].append
+
+    def local(path: str) -> Path:
+        return share.joinpath(*[p for p in path.replace("\\", "/").split("/") if p])
+
+    smb = types.ModuleType("smbclient")
+    smb_shutil = types.ModuleType("smbclient.shutil")
+    smb.ClientConfig = lambda **kw: None
+    smb.register_session = lambda server, **kw: None
+    smb.delete_session = lambda server: None
+    smb.makedirs = lambda path, exist_ok=False: local(path).mkdir(parents=True,
+                                                                  exist_ok=exist_ok)
+    smb_shutil.copy2 = lambda src, dst: shutil.copy2(src, local(dst))
+    smb.shutil = smb_shutil
+
+    class Cursor:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def execute(self, sql, values=None):
+            state["sql"].append((sql, values))
+
+        def fetchone(self):
+            return (PACS_MAX_ID,)
+
+    class Connection:
+        def cursor(self):
+            return Cursor()
+
+        def commit(self):
+            pass
+
+        def rollback(self):
+            state["rollbacks"] += 1
+
+        def close(self):
+            pass
+
+    psycopg2 = types.ModuleType("psycopg2")
+    psycopg2.connect = lambda **kw: Connection()
+    return (_pacs_server(Orthanc), _pacs_server(Stow),
+            {"orthanc": orthanc, "smbclient": smb, "smbclient.shutil": smb_shutil,
+             "psycopg2": psycopg2})
+
+
+def _pacs_rows(sql: list) -> list[dict]:
+    """The upserted monitoring rows, as dicts, in order."""
+    rows = []
+    for statement, values in sql:
+        if statement.startswith("INSERT INTO boa_entries ("):
+            cols = statement.split("(", 1)[1].split(")", 1)[0].split(", ")
+            rows.append(dict(zip(cols, values)))
+    return rows
+
+
+def _boa_entries_columns(repo) -> set:
+    """The columns of deploy/init.sql's monitoring table."""
+    text = (repo / "deploy" / "init.sql").read_text()
+    body = text.split("CREATE TABLE boa_entries (", 1)[1].split(");", 1)[0]
+    return {line.split()[0] for line in body.strip().splitlines()
+            if line.strip() and not line.strip().startswith("UNIQUE")}
+
+
+def _multipart_bodies(content_type: str, body: bytes) -> list[bytes]:
+    """The parts of a multipart/related STOW-RS body."""
+    boundary = content_type.split("boundary=")[1].strip().encode()
+    parts = body.split(b"--" + boundary)
+    assert parts[0] == b"" and parts[-1] == b"--\r\n", "malformed multipart body"
+    out = []
+    for part in parts[1:-1]:
+        head, payload = part.split(b"\r\n\r\n", 1)
+        assert b"Content-Type: application/dicom" in head and payload.endswith(b"\r\n")
+        out.append(payload[:-2])
+    return out
+
+
+def phase_pacs(torch, rc, pc) -> dict:
+    """The PACS front door as a hospital deploys it: Orthanc's
+    STABLE_SERIES callback (`pacs/on_change.py`) -> `analyze_stable_series
+    .delay` -> the local queue's thread -> the worker (`pacs/worker.py`:
+    download over Orthanc's REST API, `analyze_ct` on the card with
+    `PACS_MODEL=total`, `FAST_TOTAL=1` and no `DEVICE`) -> the sinks
+    (DICOM-SEG over STOW-RS, the workbook, preview and debug file to an SMB
+    share, the monitoring rows to Postgres) -> the series deleted. Orthanc's
+    REST API and the STOW-RS receiver are stdlib HTTP servers on localhost;
+    `orthanc`, `smbclient` and `psycopg2` are stand-in modules (the card
+    machine has none of them), `/storage_directory` does not exist, so the
+    results leave the worker only through its sinks. Three stable series:
+    (A) the bench's 512x512x300 CT as an uncompressed series (dicom (c)'s,
+    or written here) on the full-width total_fast store: the SEG received
+    over STOW-RS, read back, agrees > 0.99 with dicom (c)'s total.nii.gz
+    (or with `cli.run` on the same series when the dicom phase did not run),
+    the share holds the workbook (its info sheet with the series' DICOM
+    rows), preview_total.png and debug_information.txt (naming the card)
+    under the naming scheme's path, the last row computed with its times;
+    (B) five instances: rejected by the gate and deleted, its row `none-<max
+    id>`, not computed; (C) 20 instances with their pixel data cut short:
+    "BOA analysis failed" in the debug file, the only file on the share, not
+    computed. Every column written is one of deploy/init.sql's, Orthanc got
+    DELETE for all three, and the launches are (A)'s tiles x (4, 1, 1) with
+    no K5 and no finishing pass. The queue logs a task's exception and does
+    not raise it, so every check reads the sinks and the rows."""
+    import re as _re
+    from pathlib import Path
+
+    from boa_tpu_torch import cli
+    from boa_tpu_torch.io import dicom, dicom_io, dicom_seg, nifti, storage
+    from boa_tpu_torch.io.xlsx import read_xlsx
+    from boa_tpu_torch.pacs import util as pacs_util
+    from boa_tpu_torch.pacs import worker as pacs_worker
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+
+    repo = Path(__file__).resolve().parent
+    card = torch.cuda.get_device_name(0)
+    res = {}
+    t_phase = time.perf_counter()
+    if Path("/storage_directory").exists():
+        raise AssertionError("/storage_directory exists: the worker would keep its results")
+    if _BCA_STUDY:   # bca (c)'s store, with dicom (c)'s series when that phase ran
+        root, img = _BCA_STUDY["root"], _BCA_STUDY["img"]
+    else:
+        root, img = Path(_total_fast_store().root), _bench_ct(STUDY_SHAPE, (1.5, 1.5, 3.0))
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+
+    # --- the three series and the reference labels
+    t0 = time.perf_counter()
+    series_a = root / "series"
+    res["series_a_from"] = "dicom (c)" if series_a.exists() else "written here"
+    if not series_a.exists():
+        series_a = tmp / "series"
+        dicom_io.write_ct_series(img, series_a)
+    small = _bench_ct((64, 64, 20), (1.5, 1.5, 3.0))
+    series_c = tmp / "series_c"
+    dicom_io.write_ct_series(small, series_c, accession="ACC16C", series_number=7,
+                             series_description="CT cut short")
+    res["series_write_s"] = time.perf_counter() - t0
+    ref_path = root / "dicom" / "total.nii.gz"
+    res["reference"] = "dicom (c)'s total.nii.gz"
+    if not ref_path.exists():   # no dicom phase: the CLI on the same series
+        env_before = dict(os.environ)
+        os.environ.update(BOA_WEIGHTS_PATH=str(root))
+        try:
+            t0 = time.perf_counter()
+            cli.run(["-i", str(series_a), "-o", str(tmp / "ref"), "-m", "total",
+                     "--fast-total"])
+            res["reference_s"] = time.perf_counter() - t0
+        finally:
+            os.environ.clear()
+            os.environ.update(env_before)
+        ref_path, res["reference"] = tmp / "ref" / "total.nii.gz", "cli.run on the series"
+
+    def simplified_tags(path) -> dict:
+        """Orthanc's simplified-tags of an instance."""
+        ds = dicom.dcmread(path, stop_before_pixels=True)
+        tags = {}
+        for kw in ("PatientName", "PatientID", "StudyDate", "StudyDescription",
+                   "AccessionNumber", "SeriesNumber", "SeriesDescription", "Modality",
+                   "ImageType"):
+            v = ds.get(kw)
+            if v is not None:
+                tags[kw] = [str(x) for x in v] if isinstance(v, (list, tuple)) else str(v)
+        return tags
+
+    files_a, files_c = sorted(series_a.iterdir()), sorted(series_c.iterdir())
+    tags_a, tags_c = simplified_tags(files_a[0]), simplified_tags(files_c[0])
+    state = {"deleted": [], "stow": [], "sql": [], "rollbacks": 0, "series": {
+        "A": (tags_a, {f"a{k}": p for k, p in enumerate(files_a)}),
+        "B": (tags_a, {f"b{k}": p for k, p in enumerate(files_a[:5])}),
+        "C": (tags_c, {f"c{k}": p.read_bytes()[:-4096] for k, p in enumerate(files_c)})}}
+    share = tmp / "share"
+    orthanc_srv, stow_srv, stand_ins = _pacs_fakes(state, share)
+
+    # --- the deployment's environment, stand-ins and queue files
+    env_before = dict(os.environ)
+    for var in ("DEVICE", "NVIDIA_ID", "CELERY_BROKER", "DELETE_SERIES_FROM_ORTHANC",
+                "PATIENT_INFO_IN_OUTPUT", "FAST_BCA", "LICENSE_NUMBER"):
+        os.environ.pop(var, None)
+    os.environ.update(
+        ORTHANC_URL="http://127.0.0.1", ORTHANC_PORT=str(orthanc_srv.server_port),
+        ORTHANC_USERNAME="boa", ORTHANC_PASSWORD="boa-pw", PACS_MODEL="total",
+        FAST_TOTAL="1", BOA_WEIGHTS_PATH=str(root),
+        SEGMENTATION_UPLOAD_URL=f"http://127.0.0.1:{stow_srv.server_port}/dicom-web",
+        UPLOAD_USER="stow", UPLOAD_PWD="stow-pw", SMB_DIR_OUTPUT="\\\\pacs-share\\boa",
+        SMB_USER="smb", SMB_PWD="smb-pw", POSTGRES_HOST="monitoring",
+        POSTGRES_PORT="5432", POSTGRES_USER="boa_user", POSTGRES_PASSWORD="pg-pw",
+        POSTGRES_DATABASE="boa_tpu")
+    saved_modules = {k: sys.modules.get(k) for k in (*stand_ins, "boa_tpu_torch.pacs.on_change")}
+    sys.modules.update(stand_ins)
+    sys.modules.pop("boa_tpu_torch.pacs.on_change", None)
+    saved_files = pacs_worker.HEARTBEAT_FILE, pacs_worker.READINESS_FILE
+    pacs_worker.HEARTBEAT_FILE, pacs_worker.READINESS_FILE = tmp / "heartbeat", tmp / "ready"
+    sinks = {"seg_s": [], "stow_s": [], "stow_bytes": []}
+    build, stow = storage.build_output_dicoms, storage.stow_rs
+
+    def build_timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        sinks["seg_s"].append(time.perf_counter() - t0)
+        return out
+
+    def stow_timed(url, datasets, auth=None):
+        t0 = time.perf_counter()
+        stow(url, datasets, auth)
+        sinks["stow_s"].append(time.perf_counter() - t0)
+
+    storage.build_output_dicoms, storage.stow_rs = build_timed, stow_timed
+    try:
+        import boa_tpu_torch.pacs.on_change  # noqa: F401  (Orthanc loads the script)
+
+        (callback,) = stand_ins["orthanc"].callbacks
+        rc.reset_launches()
+        pc.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for series_id in ("A", "B", "C"):
+            callback(stand_ins["orthanc"].ChangeType.STABLE_SERIES, 0, series_id)
+        res["enqueue_s"] = time.perf_counter() - t0
+        pacs_worker._local_queue.join()
+        torch.cuda.synchronize()
+        res["drive_s"] = time.perf_counter() - t0
+        got = dict(rc.LAUNCHES, **pc.LAUNCHES)
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        pacs_worker._local_queue.stop()
+    finally:
+        storage.build_output_dicoms, storage.stow_rs = build, stow
+        pacs_worker.HEARTBEAT_FILE, pacs_worker.READINESS_FILE = saved_files
+        for k, v in saved_modules.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        os.environ.clear()
+        os.environ.update(env_before)
+        orthanc_srv.shutdown()
+        stow_srv.shutdown()
+
+    # --- the sinks: rows, share, STOW-RS, Orthanc
+    rows = _pacs_rows(state["sql"])
+    enqueued = dict((s, t) for t, s in _re.findall(r"Enqueued task (\S+) for series (\S+)\.",
+                                                   "\n".join(stand_ins["orthanc"].logs)))
+    by_task = {}
+    for row in rows:
+        by_task.setdefault(row["task_id"], []).append(row)
+    final_a, final_c = by_task[enqueued["A"]][-1], by_task[enqueued["C"]][-1]
+    (row_b,) = by_task[f"none-{PACS_MAX_ID}"]
+    columns = _boa_entries_columns(repo)
+    dir_a = share.joinpath("pacs-share", "boa", *pacs_util.get_naming_scheme(
+        {**tags_a, "CalledAET": "BOA"}).strip("/").split("/"))
+    dir_c = share.joinpath("pacs-share", "boa", *pacs_util.get_naming_scheme(
+        {**tags_c, "CalledAET": "BOA"}).strip("/").split("/"))
+    shared = sorted(str(p.relative_to(share)) for p in share.rglob("*") if p.is_file())
+    xlsx = pacs_util._process_info_element(
+        tags_a, ["AccessionNumber", "SeriesNumber", "SeriesDescription"]) + ".xlsx"
+    info = read_xlsx(dir_a / xlsx)["info"] if (dir_a / xlsx).exists() else []
+    dicom_rows = {r["name"] for r in dicom_io.extract_metadata(
+        dicom.dcmread(files_a[0], stop_before_pixels=True))}
+    debug_a = (dir_a / "debug_information.txt").read_text()
+    debug_c = (dir_c / "debug_information.txt").read_text()
+
+    t0 = time.perf_counter()
+    datasets = [dicom.dcmread(b) for _p, ct, body in state["stow"]
+                for b in _multipart_bodies(ct, body)]
+    segs = {ds.SeriesDescription: ds for ds in datasets}
+    seg = segs["Total Body Segmentation"]
+    vol, names = dicom_seg.read_seg_labelmap(seg)
+    label_of = {name: lb for lb, name in get_class_map("total").items()}
+    lut = np.zeros(max(names) + 1, np.int64)
+    for segno, name in names.items():
+        lut[segno] = label_of[name]
+    labels = lut[vol]
+    ref = np.asarray(nifti.load(ref_path).data)
+    res["readback_s"] = time.perf_counter() - t0
+    expect = _bca_tiles(img, (128, 128, 128), (3.0, 3.0, 3.0))["total"]
+    res.update({
+        "card": card, "rows": {s: by_task[t] for s, t in enqueued.items()},
+        "row_b": row_b, "columns_outside_init_sql": sorted(set().union(*rows) - columns),
+        "deleted": state["deleted"], "share": shared,
+        "seg_s": sinks["seg_s"], "stow_s": sinks["stow_s"],
+        "stow_posts": [(p, len(body)) for p, _ct, body in state["stow"]],
+        "stow_datasets": sorted(segs), "seg_frames": int(seg.NumberOfFrames),
+        "seg_segments": len(names), "agree": float((labels == ref).mean()) if
+        labels.shape == ref.shape else 0.0, "labels_shape": list(labels.shape),
+        "launches": got, "expected_tiles": expect,
+        "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "pacs", **res})
+    assert final_a["computed"] is True, final_a
+    assert {"download_time", "inference_time", "total_time",
+            "save_persistent_time"} <= set(final_a), final_a
+    assert final_c["computed"] is False and row_b["computed"] is False, (final_c, row_b)
+    assert not res["columns_outside_init_sql"], res["columns_outside_init_sql"]
+    assert sorted(state["deleted"]) == ["/series/A", "/series/B", "/series/C"], state["deleted"]
+    for name in (xlsx, "preview_total.png", "debug_information.txt"):
+        assert (dir_a / name).exists(), (name, shared)
+    assert [p for p in shared if p.startswith(str(dir_c.relative_to(share)))] == \
+        [str((dir_c / "debug_information.txt").relative_to(share))], shared
+    assert "BOA analysis failed" in debug_c and "BOA analysis failed" not in debug_a
+    assert card in debug_a, debug_a[:400]
+    assert dicom_rows <= {r[0] for r in info if r}, (dicom_rows, info)
+    assert len(state["stow"]) == 1 and state["stow"][0][0] == "/dicom-web/studies"
+    assert res["agree"] > 0.99, res["agree"]
+    assert got == _want_launches(expect), (got, expect)
+    assert state["rollbacks"] == 0
+    tmp_dir.cleanup()
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -3500,7 +3912,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
 
 
 def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, tools,
-             serve) -> list[dict]:
+             serve, pacs) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -3510,7 +3922,8 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
                                 launches_api=api["nifti"]["launches"][name],
                                 launches_engine=engine["pth"]["launches"][name],
                                 launches_tools=tools["launches"][name],
-                                launches_serve=serve["stream"]["launches"][name]))
+                                launches_serve=serve["stream"]["launches"][name],
+                                launches_pacs=pacs["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -3527,11 +3940,13 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
         row["launches_bca"] = bca["study"]["launches"][name]
         row["launches_cli"] = cli["study"]["launches"][name]
         row["launches_api"] = api["nifti"]["launches"][name]
-        # engine (a): 12 forwards of a batch of 8 flips (96 network evaluations)
+        # engine (a): 8 forwards of a batch of 8 flips (64 network evaluations)
         row["launches_engine"] = engine["pth"]["launches"][name]
         # the tools' commands (b) on K1-K3, and the stream of serve (a)
         row["launches_tools"] = tools["launches"][name]
         row["launches_serve"] = serve["stream"]["launches"][name]
+        # the PACS worker's series (A), from the Orthanc callback to the sinks
+        row["launches_pacs"] = pacs["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -3594,9 +4009,11 @@ def main() -> int:
         tools = phase_tools(torch, rc, pc)
     if "serve" in phases:
         serve = phase_serve(torch, rc, pc)
+    if "pacs" in phases:
+        pacs = phase_pacs(torch, rc, pc)
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api,
-                                  engine, tools, serve)})
+                                  engine, tools, serve, pacs)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,7 +16,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 _CHECK = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, types
+# the Orthanc runtime provides `orthanc` to pacs/on_change.py: a stub here
+orthanc = types.ModuleType("orthanc")
+orthanc.RegisterOnChangeCallback = lambda callback: None
+orthanc.ChangeType = types.SimpleNamespace(STABLE_SERIES=9)
+sys.modules["orthanc"] = orthanc
 import boa_tpu_torch
 for m in pkgutil.walk_packages(boa_tpu_torch.__path__, "boa_tpu_torch."):
     importlib.import_module(m.name)
@@ -35,7 +40,11 @@ front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"
          "boa_tpu_torch.serve", "boa_tpu_torch.serve.stream", "boa_tpu_torch.serve.warmup",
          "boa_tpu_torch.ops.registration", "boa_tpu_torch.tools.evans_index",
          "boa_tpu_torch.tools.crop_to_body", "boa_tpu_torch.tools.get_modality",
-         "boa_tpu_torch.tools.get_phase", "boa_tpu_torch.compute.gbm"}
+         "boa_tpu_torch.tools.get_phase", "boa_tpu_torch.compute.gbm",
+         "boa_tpu_torch.pacs", "boa_tpu_torch.pacs.imports", "boa_tpu_torch.pacs.util",
+         "boa_tpu_torch.pacs.worker", "boa_tpu_torch.pacs.on_change",
+         "boa_tpu_torch.io.storage", "boa_tpu_torch.templates",
+         "boa_tpu_torch.templates.generate"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -48,7 +57,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) and
     the model-folder tools' (engine/, train/variants.py, the checkpoint
     writer in testing/), the serving layer's (serve/), the TotalSegmentator
-    tools' with the registration and the GBM fitter among them."""
+    tools' with the registration and the GBM fitter among them, and the
+    PACS layer's (pacs/, the sinks in io/storage.py, templates/), with a
+    stub for the `orthanc` module that Orthanc's runtime provides."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
