@@ -1,8 +1,10 @@
 """Model-engine tools of the port: folder prediction (`predict.py`),
 ensembling and postprocessing determination (`ensembling.py`), evaluation
-(`evaluation.py`) and the dataset fingerprint (`fingerprint.py`), the
-counterparts of nnUNetv2_predict, _ensemble, _find_best_configuration and
-_evaluate_folder. The planner waits for the port's trainer (ROADMAP M11)."""
+(`evaluation.py`), the dataset fingerprint (`fingerprint.py`), the planner
+(`planner.py`), preprocessing (`plan_and_preprocess.py`) and dataset
+conversion (`dataset_conversion.py`), the counterparts of nnUNetv2_predict,
+_ensemble, _find_best_configuration, _evaluate_folder,
+_plan_and_preprocess and _convert_MSD_dataset."""
 
 from boa_tpu_torch.engine.ensembling import (  # noqa: F401
     apply_postprocessing,

@@ -3,7 +3,10 @@
 Counterpart of `boa_tpu/engine/evaluation.py` (nnU-Net's
 `evaluate_predictions.py`, `nnUNetv2_evaluate_folder`): per-case per-label
 metrics and a `foreground_mean` summary, written to a json, with
-overlapping regions (a label may be a tuple of ints). Host numpy.
+overlapping regions (a label may be a tuple of ints). Host numpy; integer
+labels are counted in one pass of bincounts (the reference takes one pass
+over the volume per label: 40 s for 117 labels on 10.5 M voxels on the
+card machine's host), regions label by label.
 
 Run: `python -m boa_tpu_torch.engine.evaluation ref/ pred/ -o summary.json`.
 """
@@ -38,14 +41,43 @@ def compute_tp_fp_fn_tn(mask_ref: np.ndarray, mask_pred: np.ndarray,
     return tp, fp, fn, tn
 
 
+def _label_counts(seg_ref: np.ndarray, seg_pred: np.ndarray, labels,
+                  ignore: np.ndarray | None):
+    """{label: (tp, fp, fn, tn)} for integer labels from one pass of
+    bincounts, the counts `compute_tp_fp_fn_tn` gives label by label; None
+    when a label is a region or a volume is not of non-negative integers."""
+    if any(isinstance(lb, (tuple, list)) for lb in labels) or not all(
+            np.issubdtype(a.dtype, np.integer) for a in (seg_ref, seg_pred)):
+        return None
+    r, p = seg_ref.ravel(), seg_pred.ravel()
+    if ignore is not None:
+        keep = ~ignore.ravel()
+        r, p = r[keep], p[keep]
+    if r.size and min(int(r.min()), int(p.min())) < 0:
+        return None
+    k = max([int(r.max(initial=0)), int(p.max(initial=0))] + [int(lb) for lb in labels]) + 1
+    n_ref = np.bincount(r, minlength=k)
+    n_pred = np.bincount(p, minlength=k)
+    tps = np.bincount(r[r == p], minlength=k)
+    out = {}
+    for lb in labels:
+        tp = int(tps[lb])
+        fp, fn = int(n_pred[lb]) - tp, int(n_ref[lb]) - tp
+        out[lb] = (tp, fp, fn, r.size - tp - fp - fn)
+    return out
+
+
 def evaluate_case(seg_ref: np.ndarray, seg_pred: np.ndarray,
                   labels: Sequence, ignore_label: int | None = None) -> dict:
     ignore = seg_ref == ignore_label if ignore_label is not None else None
+    counts = _label_counts(np.asarray(seg_ref), np.asarray(seg_pred), labels, ignore)
     out = {}
     for lb in labels:
-        mr = _region_mask(seg_ref, lb)
-        mp = _region_mask(seg_pred, lb)
-        tp, fp, fn, tn = compute_tp_fp_fn_tn(mr, mp, ignore)
+        if counts is not None:
+            tp, fp, fn, tn = counts[lb]
+        else:
+            tp, fp, fn, tn = compute_tp_fp_fn_tn(_region_mask(seg_ref, lb),
+                                                 _region_mask(seg_pred, lb), ignore)
         denom = 2 * tp + fp + fn
         out[str(lb)] = {
             "Dice": 2 * tp / denom if denom else float("nan"),

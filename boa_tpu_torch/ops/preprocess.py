@@ -1,6 +1,6 @@
 """Preprocessing: nonzero bbox (host `nonzero_bbox`, device `bbox_array`),
-CT / z-score normalization, tile grid,
-Gaussian fusion weights.
+CT / z-score normalization, centre padding to the patch (`pad_to_patch`),
+tile grid, Gaussian fusion weights.
 
 Counterpart of `boa_tpu/ops/preprocess.py`. The tile grid and the Gaussian
 map are host numpy (shape math); normalization runs on the tensor's device.
@@ -53,6 +53,20 @@ def ct_normalize(vol: torch.Tensor, props: dict) -> torch.Tensor:
 def zscore_normalize(vol: torch.Tensor) -> torch.Tensor:
     v = vol.float()
     return (v - v.mean()) / torch.clamp(v.std(unbiased=False), min=1e-8)
+
+
+def pad_to_patch(vol: np.ndarray, patch_size):
+    """Centre-pad the last 3 axes of a host volume with 0 up to at least
+    `patch_size`: (padded, revert slices) that crop the padding off again
+    (acvl's pad_nd_image(return_slicer=True))."""
+    spatial = vol.shape[-3:]
+    pads = []
+    for n, p in zip(spatial, patch_size):
+        d = max(p - n, 0)
+        pads.append((d // 2, d - d // 2))
+    padded = np.pad(vol, [(0, 0)] * (vol.ndim - 3) + pads, mode="constant",
+                    constant_values=0)
+    return padded, tuple(slice(b, b + n) for (b, _), n in zip(pads, spatial))
 
 
 def compute_steps(image_size, tile_size, step_fraction: float) -> list[list[int]]:

@@ -1,12 +1,13 @@
 """Trainer-variant table: trainer names -> hyperparameter deltas.
 
 Counterpart of `boa_tpu/train/variants.py` (`VariantSpec`, `VARIANTS`,
-`get_variant`), a copy of its table. nnU-Net encodes hyperparameter
-variants as trainer subclasses whose names are stored in checkpoints and
-model folders (`nnunetv2/training/nnUNetTrainer/variants/`); the
-model-folder predictor reads `mirror_axes` from here. The reference's
-`apply_variant` and `primus_train_config` build training configurations
-and wait for the port's trainer (ROADMAP M11).
+`get_variant`, `apply_variant`), a copy of its table. nnU-Net encodes
+hyperparameter variants as trainer subclasses whose names are stored in
+checkpoints and model folders (`nnunetv2/training/nnUNetTrainer/variants/`);
+the model-folder predictor reads `mirror_axes` from here and the trainer
+(`run_training.py`) the rest. The Primus trainers need the Primus network,
+which the port does not have yet: `apply_variant` raises for them, and
+`primus_train_config` is not ported.
 """
 
 from __future__ import annotations
@@ -135,3 +136,45 @@ def get_variant(trainer_name: str) -> VariantSpec:
     if "NoMirroring" in trainer_name:
         spec = replace(spec, mirror_axes=())
     return spec
+
+
+def apply_variant(cfg, trainer_name: str, batch_size: int = 2):
+    """TrainConfig + trainer name -> (adjusted TrainConfig, spec): epochs,
+    lr, loss, optimizer, schedule, weight decay, clip, betas, oversampling
+    and deep supervision. The spec's augmentation and sampling markers (DA5,
+    NoDA, order-0 seg, probabilistic oversampling) are read by
+    `run_training`; `batch_size` is the plan batch the probabilistic
+    variant recomputes its percent against."""
+    import dataclasses
+
+    spec = get_variant(trainer_name)
+    if spec.primus is not None:
+        raise NotImplementedError(
+            f"{trainer_name!r} trains the Primus network, which the port does "
+            "not have yet: it comes with the slice that ports models/primus.py "
+            "and primus_train_config (ROADMAP Queue 1)")
+    if spec.batch_norm:
+        raise ValueError(
+            "nnUNetTrainerBN (BatchNorm U-Net) is recognised for checkpoint "
+            "deserialization only: the network trains with InstanceNorm")
+    kw = dict(num_epochs=spec.num_epochs, initial_lr=spec.initial_lr,
+              loss=spec.loss, optimizer=spec.optimizer,
+              lr_schedule=spec.lr_schedule)
+    if spec.weight_decay is not None:
+        kw["weight_decay"] = spec.weight_decay
+    if spec.grad_clip is not None:
+        kw["grad_clip"] = spec.grad_clip
+    if spec.adam_betas is not None:
+        kw["adam_betas"] = spec.adam_betas
+    if spec.oversample_percent is not None:
+        kw["oversample_foreground_percent"] = spec.oversample_percent
+    elif spec.probabilistic_oversampling:
+        # the realised fraction of round-rule-forced positions (batch 2 at
+        # 0.33 -> 0.5), `nnUNetTrainer_probabilisticOversampling.py:20-23`
+        from boa_tpu_torch.train.dataloader import oversample_flags
+
+        flags = oversample_flags(batch_size, cfg.oversample_foreground_percent)
+        kw["oversample_foreground_percent"] = float(sum(flags) / max(len(flags), 1))
+    if not spec.deep_supervision and getattr(cfg.arch, "deep_supervision", False):
+        kw["arch"] = dataclasses.replace(cfg.arch, deep_supervision=False)
+    return replace(cfg, **kw), spec

@@ -16,8 +16,10 @@ architectures' module names; regexes map both encoder families (plain
 `encoder.stages.S[.J].convs.B.{conv,norm}.*`, residual
 `encoder.stem...` and `encoder.stages.S[.J].[blocks.]B.{conv1,conv2,skip}.*`)
 and skip the known aliases. `params_from_numpy` turns a pytree into the
-port's network (`models/unet.py:make_unet`). (X, Y, Z) stays torch's
-(D, H, W), so only the channel axes move.
+port's network (`models/unet.py:make_unet`) and `params_to_numpy` turns it
+back, through `param_leaves`, which names each parameter's path in the
+pytree (the trainer's optimizer-state carry uses it too). (X, Y, Z) stays
+torch's (D, H, W), so only the channel axes move.
 
 A `.pth` file is unpickled with `weights_only=False`, as nnU-Net's own
 loader does (its ``init_args`` are not tensors): it can run code, so load
@@ -36,8 +38,7 @@ import torch
 
 from boa_tpu_torch.device import resolve_device
 from boa_tpu_torch.io import npz
-from boa_tpu_torch.models.unet import (ArchConfig, BasicBlockD, ConvBlock,
-                                       PlainConvUNet, make_unet)
+from boa_tpu_torch.models.unet import ArchConfig, ConvBlock, PlainConvUNet, make_unet
 
 
 def _conv_w(t) -> np.ndarray:
@@ -216,60 +217,121 @@ def load_params_npz(path: str | Path) -> dict:
     return root
 
 
-def _t(a, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+def _block_leaves(blk: ConvBlock, path: tuple) -> list:
+    out = [(path + ("w",), blk.conv.weight)]
+    if blk.conv.bias is not None:
+        out.append((path + ("b",), blk.conv.bias))
+    if blk.norm.weight is not None:
+        out.append((path + ("norm_scale",), blk.norm.weight))
+    if blk.norm.bias is not None:
+        out.append((path + ("norm_bias",), blk.norm.bias))
+    return out
 
 
-def _kernel(a, device) -> torch.Tensor:
-    # (kx, ky, kz, ci, co) -> (co, ci, kx, ky, kz); the transposed conv's
-    # (kx, ky, kz, co, ci) -> (ci, co, kx, ky, kz) is the same permutation
-    return _t(a, device).permute(4, 3, 0, 1, 2).contiguous()
+def param_leaves(model: PlainConvUNet) -> list[tuple[tuple, torch.nn.Parameter]]:
+    """Every parameter of the network with its path in the reference's
+    pytree (``("encoder", s, b, "w")``, ``("decoder", i, "transp", "b")``,
+    ...). Weights are stored torch-major; `params_to_numpy` and the
+    optimizer-state carry (`train/optim.py`) move their axes with
+    `kernel_to_numpy`. Every leaf of the pytree appears exactly once."""
+    out: list = []
+    if model.cfg.residual_encoder:
+        out += _block_leaves(model.stem, ("stem",))
+    for s, stage in enumerate(model.encoder):
+        for b, blk in enumerate(stage):
+            if model.cfg.residual_encoder:
+                for part in ("conv1", "conv2", "skip"):
+                    if getattr(blk, part) is not None:
+                        out += _block_leaves(getattr(blk, part), ("encoder", s, b, part))
+            else:
+                out += _block_leaves(blk, ("encoder", s, b))
+    for i, st in enumerate(model.decoder):
+        out += [(("decoder", i, "transp", "w"), st.transp.weight),
+                (("decoder", i, "transp", "b"), st.transp.bias)]
+        for b, blk in enumerate(st.convs):
+            out += _block_leaves(blk, ("decoder", i, "convs", b))
+    for i, head in enumerate(model.seg_heads):
+        out += [(("seg_heads", i, "w"), head.weight), (("seg_heads", i, "b"), head.bias)]
+    return out
 
 
-def _set_block(blk: ConvBlock, p: dict, device) -> None:
-    if set(p) - {"w", "b", "norm_scale", "norm_bias"}:
-        raise ValueError(f"unknown block parameters {sorted(p)}")
-    blk.conv.weight.copy_(_kernel(p["w"], device))
-    if "b" in p:
-        blk.conv.bias.copy_(_t(p["b"], device))
-    if "norm_scale" in p:
-        blk.norm.weight.copy_(_t(p["norm_scale"], device))
-    if "norm_bias" in p:
-        blk.norm.bias.copy_(_t(p["norm_bias"], device))
+def kernel_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor shaped like a parameter -> its leaf in the reference's layout
+    (conv weights (co, ci, k...) -> (k..., ci, co), the transposed conv's
+    (ci, co, k...) -> (k..., co, ci): one permutation), as float32 numpy."""
+    t = t.detach().float()
+    if t.dim() == 5:
+        t = t.permute(2, 3, 4, 1, 0)
+    return np.ascontiguousarray(t.cpu().numpy())
 
 
-def _set_residual(blk: BasicBlockD, p: dict, device) -> None:
-    if ("skip" in p) != (blk.skip is not None):
-        raise ValueError(f"residual block {'with' if 'skip' in p else 'without'} "
-                         f"a skip conv where the config says otherwise")
-    for part in ("conv1", "conv2", "skip"):
-        if part in p:
-            _set_block(getattr(blk, part), p[part], device)
+def kernel_from_numpy(a, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of `kernel_to_numpy`, on `like`'s device and dtype."""
+    t = torch.tensor(np.asarray(a), dtype=torch.float32)
+    if t.dim() == 5:
+        t = t.permute(4, 3, 0, 1, 2)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"leaf of shape {tuple(t.shape)} for a parameter of "
+                         f"shape {tuple(like.shape)}")
+    return t.contiguous().to(device=like.device, dtype=like.dtype)
+
+
+def tree_set(tree: dict, path: tuple, value) -> None:
+    """Set `tree[path]`, creating the dicts and lists on the way (a list
+    index is appended in order, as `param_leaves` visits them)."""
+    node: Any = tree
+    for key, nxt in zip(path[:-1], path[1:]):
+        empty = [] if isinstance(nxt, int) else {}
+        if isinstance(node, list):
+            if len(node) == key:
+                node.append(empty)
+            node = node[key]
+        else:
+            node = node.setdefault(key, empty)
+    if isinstance(node, list):
+        node.append(value)
+    else:
+        node[path[-1]] = value
+
+
+def tree_get(tree, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def params_to_numpy(model: PlainConvUNet) -> dict:
+    """The network's parameters as the reference's pytree of float32 numpy
+    arrays: the inverse of `params_from_numpy`, so a checkpoint the port
+    writes loads in the reference and back."""
+    tree: dict = {}
+    for path, p in param_leaves(model):
+        tree_set(tree, path, kernel_to_numpy(p))
+    return tree
 
 
 @torch.no_grad()
-def params_from_numpy(params_np: dict, cfg: ArchConfig,
-                      device=None) -> PlainConvUNet:
+def load_params_into(model: PlainConvUNet, params_np: dict) -> None:
+    """Copy the reference's parameter pytree into the network in place. The
+    tree's leaves must be exactly the network's parameters (`param_leaves`),
+    else ValueError."""
+    leaves = param_leaves(model)
+    have: dict[str, np.ndarray] = {}
+    _flatten(params_np, "", have)
+    want = {"/".join(map(str, path)) for path, _ in leaves}
+    if set(have) != want:
+        raise ValueError(
+            f"parameter tree does not fit the network: missing "
+            f"{sorted(want - set(have))[:8]}, unexpected {sorted(set(have) - want)[:8]}")
+    for path, p in leaves:
+        p.copy_(kernel_from_numpy(have["/".join(map(str, path))], p))
+
+
+def params_from_numpy(params_np: dict, cfg: ArchConfig, device=None) -> PlainConvUNet:
     """The reference's parameter pytree (numpy leaves) -> the network of
     `cfg`'s family (PlainConvUNet or ResidualEncoderUNet) on `device`
     (default the card). Deep supervision shares the plain layout: one head
     per decoder stage."""
-    device = resolve_device(device)
-    model = make_unet(cfg, device=device)
-    if cfg.residual_encoder:
-        _set_block(model.stem, params_np["stem"], device)
-    for stage, ps in zip(model.encoder, params_np["encoder"], strict=True):
-        for blk, p in zip(stage, ps, strict=True):
-            if cfg.residual_encoder:
-                _set_residual(blk, p, device)
-            else:
-                _set_block(blk, p, device)
-    for st, ps in zip(model.decoder, params_np["decoder"], strict=True):
-        st.transp.weight.copy_(_kernel(ps["transp"]["w"], device))
-        st.transp.bias.copy_(_t(ps["transp"]["b"], device))
-        for blk, p in zip(st.convs, ps["convs"], strict=True):
-            _set_block(blk, p, device)
-    for head, p in zip(model.seg_heads, params_np["seg_heads"], strict=True):
-        head.weight.copy_(_kernel(p["w"], device))
-        head.bias.copy_(_t(p["b"], device))
+    model = make_unet(cfg, device=resolve_device(device))
+    load_params_into(model, params_np)
     return model.eval()

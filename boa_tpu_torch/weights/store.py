@@ -1,7 +1,8 @@
 """Model weight store: on-disk layout and the synthetic zoo.
 
 Counterpart of `boa_tpu/weights/store.py` (`ModelStore`,
-`import_torch_model_folder`, `create_synthetic_model`). The layout is
+`import_torch_model_folder`, `export_trained_model`, `create_synthetic_model`).
+The layout is
 nnU-Net's results-folder convention,
 ``DatasetXXX_name/trainer__nnUNetPlans__3d_fullres/`` with ``plans.json``,
 ``dataset.json`` and ``fold_k/checkpoint_final.npz``, so the two packages
@@ -17,8 +18,10 @@ JAX's generator.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +31,8 @@ from boa_tpu_torch.plans.plans import ModelPlans, synthetic_plans
 from boa_tpu_torch.weights import convert as cv
 
 DEFAULT_WEIGHTS_ENV = "BOA_WEIGHTS_PATH"
+
+logger = logging.getLogger(__name__)
 
 
 def weights_root() -> Path:
@@ -112,6 +117,76 @@ def import_torch_model_folder(src: str | Path,
                                                  cfg),
                            out / "checkpoint_final.npz")
     return dst
+
+
+def export_trained_model(training_dir: str | Path, task_id: int, name: str,
+                         root: str | Path | None = None,
+                         trainer: str = "nnUNetTrainer", fold: int = 0,
+                         checkpoint: str = "checkpoint_final.pkl") -> Path:
+    """A `train/run_training.py` output (of either package) -> a servable
+    store entry, ``DatasetXXX_name/trainer__nnUNetPlans__3d_fullres/
+    fold_N/checkpoint_final.npz`` with plans.json and dataset.json, which
+    `ModelStore.load` and `predict_image` read. The plans take the patch,
+    classes and widths from export_meta.json, and the spacing, the intensity
+    properties and the label names from the preprocessing plans and
+    dataset.json beside the case store, when they are there."""
+    training_dir = Path(training_dir)
+    meta = json.loads((training_dir / "export_meta.json").read_text())
+    with open(training_dir / checkpoint, "rb") as f:
+        params = pickle.load(f)["params"]
+    spacing = (1.0, 1.0, 1.0)
+    label_names = None
+    intensity = None
+    prep_dir = Path(meta.get("cases_dir", training_dir)).parent
+    prep_plans_path = prep_dir / "plans.json"
+    if prep_plans_path.exists():
+        prep_plans = json.loads(prep_plans_path.read_text())
+        cfg3d = prep_plans.get("configurations", {}).get("3d_fullres", {})
+        spacing = tuple(cfg3d.get("spacing", spacing))
+        intensity = prep_plans.get("foreground_intensity_properties_per_channel")
+    else:
+        logger.warning(
+            "Preprocessing plans not found at %s: exporting with 1 mm spacing and "
+            "synthetic intensity normalization; serving will NOT resample and "
+            "normalize as training did. Re-export with the case store available.",
+            prep_plans_path)
+    for cand in (prep_dir / "dataset.json", prep_dir.parent / "dataset.json"):
+        if cand.exists():
+            labels = json.loads(cand.read_text()).get("labels")
+            if labels:
+                # synthetic_plans adds background itself: classes 1..N
+                label_names = [n for n, v in sorted(
+                    ((n, v) for n, v in labels.items()
+                     if not isinstance(v, (list, tuple)) and int(v) != 0),
+                    key=lambda kv: int(kv[1]))]
+            break
+    if label_names is not None and len(label_names) != meta["num_classes"] - 1:
+        logger.warning("dataset.json lists %d foreground labels but the checkpoint "
+                       "has %d classes; using generic class names",
+                       len(label_names), meta["num_classes"] - 1)
+        label_names = None
+    plans = synthetic_plans(num_classes=meta["num_classes"],
+                            patch_size=tuple(meta["patch_size"]), spacing=spacing,
+                            features=tuple(meta["features_per_stage"]),
+                            label_names=label_names)
+    if intensity:
+        plans.plans["foreground_intensity_properties_per_channel"] = intensity
+    return _write_store_entry(Path(root) if root else weights_root(), task_id, name,
+                              trainer, plans, {fold: params})
+
+
+def _write_store_entry(root: Path, task_id: int, name: str, trainer: str,
+                       plans: ModelPlans, fold_params: dict) -> Path:
+    """Plans, dataset and each fold's numpy pytree in the store layout."""
+    mdir = Path(root) / f"Dataset{task_id:03d}_{name}" / f"{trainer}__nnUNetPlans__3d_fullres"
+    mdir.mkdir(parents=True, exist_ok=True)
+    (mdir / "plans.json").write_text(json.dumps(plans.plans))
+    (mdir / "dataset.json").write_text(json.dumps(plans.dataset))
+    for fold, params in fold_params.items():
+        fdir = mdir / f"fold_{fold}"
+        fdir.mkdir(exist_ok=True)
+        cv.save_params_npz(params, fdir / "checkpoint_final.npz")
+    return mdir
 
 
 def _uniform(rng, shape, bound) -> np.ndarray:
@@ -200,14 +275,6 @@ def create_synthetic_model(
                             spacing=spacing, features=features,
                             label_names=label_names)
     cfg = plans.arch_config()
-    mdir = Path(root) / f"Dataset{task_id:03d}_{name}" / \
-        f"{trainer}__nnUNetPlans__3d_fullres"
-    mdir.mkdir(parents=True, exist_ok=True)
-    (mdir / "plans.json").write_text(json.dumps(plans.plans))
-    (mdir / "dataset.json").write_text(json.dumps(plans.dataset))
-    for f in range(n_folds):
-        fdir = mdir / f"fold_{f}"
-        fdir.mkdir(exist_ok=True)
-        cv.save_params_npz(init_params_numpy(cfg, seed + task_id * 10 + f),
-                           fdir / "checkpoint_final.npz")
-    return mdir
+    return _write_store_entry(Path(root), task_id, name, trainer, plans,
+                              {f: init_params_numpy(cfg, seed + task_id * 10 + f)
+                               for f in range(n_folds)})

@@ -247,22 +247,41 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               instances cut short: "BOA analysis failed" on the share; every
               column one of deploy/init.sql's, DELETE for all three, launches
               (A)'s tiles x (4, 1, 1) with no K5
+17. train   - the train -> serve loop and the weights commands: (a) three
+              synthetic 256x256x160 CTs at about 1.5 mm with blobs of the 117
+              `total` classes as an MSD task -> `convert_msd_dataset` ->
+              `plan_and_preprocess` on the card -> `run_training` at 128^3,
+              batch 2, 118 classes, total_fast's 6-stage 32->320 net with deep
+              supervision, SGD, bf16, fold 0 with validation (one warm-up and
+              one timed epoch of 10 iterations) -> `weights.manager export`
+              as task 297 -> `predict_image("total", fast=True)`: seconds of
+              each stage, median seconds per iteration (CUDA events, the loop
+              unsynced as the CLI runs it), the loader-wait share, the
+              device's wait for the host, the peak, launches (each epoch's eval forward and the
+              validation's tiles) x (4, 1, 1); the served labels > 0.99
+              against the plain composite; the loss falling over 5 steps on
+              one batch, a bf16 step within 2e-2 / 5e-2 (loss / grad norm) of
+              a float32 step, a small float32 step card against CPU within
+              1e-4; (b) `manager import` of a .pth folder, `list`,
+              `create-synthetic`, `download` and the sharing zips from a
+              localhost server, each model as the .pth loaded directly
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render, api, engine, tools, serve, pacs) only those phases run after the device
-phase, and the kernel summary line is left out. Each phase prints one JSON line
-(the total, measure, bca, cli, dicom, render, api, engine, tools and serve phases
-one per part).
+dicom, render, api, engine, tools, serve, pacs, train) only those phases run after
+the device phase, and the kernel summary line is left out. Each phase prints one
+JSON line (the total, measure, bca, cli, dicom, render, api, engine, tools, serve
+and train phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
 of api (a), `launches_engine` engine (a)'s predict, `launches_tools` the
 tools' commands of tools (b), `launches_serve` the stream of serve (a),
-`launches_pacs` the PACS worker's series (A); K5's row has the last six too)
+`launches_pacs` the PACS worker's series (A), `launches_train` the train
+phase's `run_training`; K5's row has the last seven too)
 and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
@@ -272,6 +291,7 @@ Weights are random, drawn from fixed seeds.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -285,7 +305,7 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render", "api", "engine", "tools", "serve", "pacs")
+              "dicom", "render", "api", "engine", "tools", "serve", "pacs", "train")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -2440,6 +2460,29 @@ def _total_fast_store():
     return _SHARED_STORES["total_fast"][1]
 
 
+def _locked_counter():
+    """Serialize `predict_image`'s prediction counter (a read-modify-write of
+    one JSON file) while two calls run on threads; restores it on exit."""
+    import contextlib
+    import threading
+
+    from boa_tpu_torch.inference import pipeline
+
+    @contextlib.contextmanager
+    def locked():
+        orig, lock = pipeline.increase_prediction_counter, threading.Lock()
+
+        def counter():
+            with lock:
+                return orig()
+        pipeline.increase_prediction_counter = counter
+        try:
+            yield
+        finally:
+            pipeline.increase_prediction_counter = orig
+    return locked()
+
+
 def phase_api(torch, rc, pc) -> dict:
     """The TotalSegmentator API (`boa_tpu_torch.python_api.totalsegmentator`)
     and its writers, on the full-width `total_fast` store with the anatomy
@@ -2448,9 +2491,9 @@ def phase_api(torch, rc, pc) -> dict:
     phantom from its .nii.gz with statistics, radiomics and the preview,
     per-class masks: seconds, spans, peak memory, launches tiles x (4, 1, 1);
     the 117 masks byte-identical to the same call on the CPU with the plain
-    hook, statistics.json within 1e-3 HU (volumes equal),
-    statistics_radiomics.json within 1e-9 relative (counts equal), the
-    preview PNGs byte-identical; (b) a 512x512x64 series of the phantom
+    hook (run on a thread alongside the card's call), statistics.json within
+    1e-3 HU (volumes equal), statistics_radiomics.json within 1e-9 relative
+    (counts equal), the preview PNGs byte-identical; (b) a 512x512x64 series of the phantom
     written by `write_ct_series` through `ml=True,
     output_type=["nifti", "dicom_seg", "dicom_rtstruct"]`: the DICOM-SEG read
     back equal to the NIfTI labels voxel for voxel, one RTSTRUCT ROI per
@@ -2461,6 +2504,7 @@ def phase_api(torch, rc, pc) -> dict:
     anatomy hook on a 96x96x32 phantom at 3.5 x 3.5 x 9 mm:
     statistics_radiomics.json written for total and ct_pfav, no launch
     (the hook replaces the forward)."""
+    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from boa_tpu_torch import cli
@@ -2494,19 +2538,28 @@ def phase_api(torch, rc, pc) -> dict:
     kw = dict(task="total", fast=True, statistics=True, radiomics=True, preview=True,
               store=store)
     spans: dict = {}
+
+    def cpu_side():
+        t = time.perf_counter()
+        out = totalsegmentator(root / "ct.nii.gz", root / "cpu", device="cpu",
+                               fake_predict=anatomy.fake_predict_factory(), **kw)[1]
+        return out, time.perf_counter() - t
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
-    t0 = time.perf_counter()
-    _, stats = totalsegmentator(root / "ct.nii.gz", root / "gpu", fake_predict=real_hook(),
-                                spans=spans, **kw)
-    sec = time.perf_counter() - t0
-    got = counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    t0 = time.perf_counter()
-    _, stats_cpu = totalsegmentator(root / "ct.nii.gz", root / "cpu", device="cpu",
-                                    fake_predict=anatomy.fake_predict_factory(), **kw)
-    cpu_s = time.perf_counter() - t0
+    # the CPU reference runs on a thread alongside the card's call (the two
+    # write to their own folders; the prediction counter is the one file they
+    # share, so its read-modify-write takes a lock)
+    with _locked_counter(), ThreadPoolExecutor(1) as ex:
+        cpu_run = ex.submit(cpu_side)
+        t0 = time.perf_counter()
+        _, stats = totalsegmentator(root / "ct.nii.gz", root / "gpu", fake_predict=real_hook(),
+                                    spans=spans, **kw)
+        sec = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats_cpu, cpu_s = cpu_run.result()
     files = sorted(p.name for p in (root / "gpu").iterdir())
     masks = [n for n in files if n.endswith(".nii.gz")]
     same_masks = [n for n in masks
@@ -2524,7 +2577,8 @@ def phase_api(torch, rc, pc) -> dict:
     same_png = (root / "gpu" / "preview_total.png").read_bytes() == \
         (root / "cpu" / "preview_total.png").read_bytes()
     res["nifti"] = {
-        "shape": list(API_SHAPE), "sec": sec, "cpu_s": cpu_s, "peak_mem_gib": peak,
+        "shape": list(API_SHAPE), "sec": sec, "cpu_s": cpu_s, "cpu_side": "concurrent",
+        "peak_mem_gib": peak,
         "spans": spans,
         "stages": {k: spans.get(k) for k in ("predict", "statistics", "radiomics_histogram",
                                              "radiomics_shape", "save_nifti",
@@ -3321,7 +3375,7 @@ SERVE_STUDIES = 5   # one of them truncated
 # warm-up command's entry and a warm-up for the study's own model-grid shape
 # (its body-cropped extent), or without either
 _FIRST_STUDY = r"""
-import json, sys, time
+import json, os, sys, time
 import torch
 from boa_tpu_torch import _build
 from boa_tpu_torch.inference.pipeline import predict_image
@@ -3331,9 +3385,16 @@ from boa_tpu_torch.serve import warmup
 from boa_tpu_torch.weights.store import ModelStore
 
 root, path, warm = sys.argv[1], sys.argv[2], sys.argv[3] == "warm"
+ready, go = sys.argv[4], sys.argv[5]
 store = ModelStore(root)
 img = nifti.load(path)
-out = {}
+out = {"start_s": time.perf_counter()}
+# started beside the other process: say so and wait for the go, without
+# touching the card, so the two measure one after the other
+open(ready, "w").close()
+while not os.path.exists(go):
+    time.sleep(0.01)
+out["start_s"] = time.perf_counter() - out["start_s"]
 if warm:   # the command's entry over two z buckets, then the study's own shape
     t0 = time.perf_counter()
     warmup.main(["--task", "total", "--fast", "--xy", "512", "--z-range", "150", "200",
@@ -3373,8 +3434,10 @@ def phase_serve(torch, rc, pc) -> dict:
     entry (`warmup.main`, `--task total --fast --xy 512 --z-range 150 200`:
     two buckets) and a warm-up of the study's own shape, then the first and
     second study of one phantom, against a fresh process not warmed, with
-    the kernel build's cache state; `--bake --stamp` twice in this process,
-    the second returning without a launch."""
+    the kernel build's cache state (the two processes start together and
+    wait, without touching the card, for their turn to measure);
+    `--bake --stamp` twice in this process, the second returning without a
+    launch."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
@@ -3465,17 +3528,34 @@ def phase_serve(torch, rc, pc) -> dict:
     t_part = time.perf_counter()
     env = _cli_env(BOA_TPU_CONFIG_DIR=str(root / "cfg"), BOA_WEIGHTS_PATH=str(store.root))
     first = {}
-    for mode in ("warm", "cold"):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-c", _FIRST_STUDY, str(store.root),
-                            str(root / "s0.nii.gz"), mode],
-                           cwd=os.path.dirname(os.path.abspath(__file__)),
-                           capture_output=True, text=True, env=env, timeout=600)
-        assert r.returncode == 0, r.stderr[-3000:]
-        out = r.stdout.strip().splitlines()
-        first[mode] = dict(json.loads(out[-1]), process_s=time.perf_counter() - t0)
-        if mode == "warm":
-            warmed = [ln for ln in out if ln.startswith("warmed ")][-1]
+    # both processes start together (their imports and the file's load
+    # overlap), then measure one after the other, each on its go-file
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-c", _FIRST_STUDY, str(store.root), str(root / "s0.nii.gz"), mode,
+         str(root / f"ready_{mode}"), str(root / f"go_{mode}")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for mode in ("warm", "cold")}
+    try:
+        deadline = time.perf_counter() + 300
+        while not all((root / f"ready_{m}").exists() for m in procs):
+            assert all(p.poll() is None for p in procs.values()), \
+                [p.stderr.read()[-3000:] for p in procs.values() if p.poll() is not None]
+            assert time.perf_counter() < deadline, "fresh processes did not start"
+            time.sleep(0.05)
+        for mode, proc in procs.items():
+            (root / f"go_{mode}").touch()
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stderr[-3000:]
+            out = stdout.strip().splitlines()
+            first[mode] = dict(json.loads(out[-1]), process_s=time.perf_counter() - t0)
+            if mode == "warm":
+                warmed = [ln for ln in out if ln.startswith("warmed ")][-1]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     stamp = root / "warm.stamp"
     bake = []
     for _ in range(2):
@@ -3894,6 +3974,425 @@ def phase_pacs(torch, rc, pc) -> dict:
     return res
 
 
+TRAIN_SHAPE = (256, 256, 160)   # the raw cases of the train phase, 1.5 mm
+TRAIN_SPACINGS = ((1.5, 1.5, 1.5), (1.4, 1.4, 1.6), (1.6, 1.6, 1.5))  # two resample
+TRAIN_ITERS = 10                # per epoch: one warm-up epoch, one timed
+WEIGHTS_FEATURES = (32, 64, 128, 256)   # (b)'s imported model: 4 stages, 118 classes
+
+
+def _train_case(seed: int, shape, n_labels: int):
+    """A raw CT with `n_labels` foreground blobs (an ellipsoid each, its own
+    HU) on a grid inside a soft-tissue body, and its label map."""
+    rng = np.random.default_rng(seed)
+    gx = np.linspace(-1, 1, shape[0], dtype=np.float32)[:, None]
+    gy = np.linspace(-1, 1, shape[1], dtype=np.float32)[None, :]
+    body = (gx ** 2 / 0.8 + gy ** 2 / 0.7) < 1.0
+    ct = np.where(body, 40.0, -1000.0).astype(np.float32)[:, :, None] \
+        + 15.0 * rng.standard_normal(shape, dtype=np.float32)
+    seg = np.zeros(shape, np.uint8)
+    side = int(np.ceil(n_labels ** (1 / 3)))
+    cells = [(i, j, k) for i in range(side) for j in range(side) for k in range(side)]
+    lo = np.array([0.2, 0.2, 0.1]) * shape
+    step = (np.array([0.6, 0.6, 0.8]) * shape) / side
+    for lb, (i, j, k) in enumerate(cells[:n_labels], start=1):
+        c = lo + step * (np.array([i, j, k]) + 0.5) + rng.uniform(-2, 2, 3)
+        r = step / 2 * rng.uniform(0.5, 0.9, 3)
+        sl = tuple(slice(max(0, int(c[a] - r[a])), int(c[a] + r[a]) + 1) for a in range(3))
+        g = np.meshgrid(*[np.arange(s.start, s.stop) for s in sl], indexing="ij")
+        inside = sum(((g[a] - c[a]) / r[a]) ** 2 for a in range(3)) < 1.0
+        seg[sl][inside] = lb
+        ct[sl][inside] = -200.0 + 9.0 * lb + 15.0 * rng.standard_normal(inside.sum())
+    return ct.astype(np.int16), seg
+
+
+def _train_raw_task(root, n_classes: int):
+    """An MSD task folder (TaskXX_name, v1 dataset.json) of three cases."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+
+    task = root / "Task17_SynthTotal"
+    (task / "imagesTr").mkdir(parents=True)
+    (task / "labelsTr").mkdir()
+
+    def write(k):
+        ct, seg = _train_case(k, TRAIN_SHAPE, n_classes - 1)
+        aff = np.diag([*TRAIN_SPACINGS[k], 1.0])
+        nifti.save(nifti.NiftiImage(data=ct, affine=aff),
+                   task / "imagesTr" / f"synth_{k:03d}.nii.gz")
+        nifti.save(nifti.NiftiImage(data=seg, affine=aff),
+                   task / "labelsTr" / f"synth_{k:03d}.nii.gz")
+
+    with ThreadPoolExecutor(len(TRAIN_SPACINGS)) as ex:
+        list(ex.map(write, range(len(TRAIN_SPACINGS))))
+    names = ["background"] + list(get_class_map("total").values())
+    (task / "dataset.json").write_text(json.dumps({
+        "name": "SynthTotal", "modality": {"0": "CT"},
+        "labels": {str(i): n for i, n in enumerate(names[:n_classes])},
+        "numTraining": len(TRAIN_SPACINGS), "training": [], "test": []}))
+    return task
+
+
+def _snapshot(torch, trainer):
+    """A copy of the trainer's network and optimizer (state carried through
+    the reference's tree)."""
+    import copy
+
+    from boa_tpu_torch.train import optim as to
+    from boa_tpu_torch.train.trainer import init_opt_state
+
+    model = copy.deepcopy(trainer.state.model)
+    opt = init_opt_state(trainer.cfg, model)
+    to.opt_state_from_numpy(model, opt, to.opt_state_to_numpy(trainer.state.model,
+                                                              trainer.state.optimizer))
+    return model, opt
+
+
+def _small_step_card_vs_cpu(torch) -> dict:
+    """One float32 step of a small network on the card and on the CPU from
+    the same parameters and batch."""
+    from boa_tpu_torch.models.unet import ArchConfig
+    from boa_tpu_torch.train.trainer import TrainConfig, init_opt_state, make_train_step
+    from boa_tpu_torch.weights.convert import _flatten, params_from_numpy, params_to_numpy
+    from boa_tpu_torch.weights.store import init_params_numpy
+
+    arch = ArchConfig(n_stages=3, features_per_stage=(8, 16, 32),
+                      kernel_sizes=((3, 3, 3),) * 3,
+                      strides=((1, 1, 1), (2, 2, 2), (2, 2, 2)), n_conv_per_stage=(2,) * 3,
+                      n_conv_per_stage_decoder=(2, 2), num_classes=3, deep_supervision=True)
+    cfg = TrainConfig(arch=arch, compute_dtype="float32")
+    params = init_params_numpy(arch, 17)
+    rng = np.random.default_rng(17)
+    y = rng.integers(0, 3, (2, 32, 32, 32)).astype(np.int64)
+    x = (y[..., None] + rng.normal(0, 0.5, (2, 32, 32, 32, 1))).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_numpy(params, arch, device=dev)
+        opt = init_opt_state(cfg, model)
+        m = make_train_step(cfg)(model, opt, torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).to(dev), 1e-2)
+        leaves: dict = {}
+        _flatten(params_to_numpy(model), "", leaves)
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]), leaves)
+    err = max(float(np.max(np.abs(out["cuda"][2][k] - out["cpu"][2][k]))) for k in out["cpu"][2])
+    return {"loss": [out["cuda"][0], out["cpu"][0]],
+            "grad_norm": [out["cuda"][1], out["cpu"][1]], "params_max_abs_diff": err}
+
+
+def _weights_commands(torch, rc, root, case_img) -> dict:
+    """(b): the manager's import, list and create-synthetic, its download and
+    the sharing zips from a localhost server, each imported model against
+    the same model loaded directly from its `.pth`."""
+    import contextlib
+    import http.server
+    import io
+    import threading
+    import zipfile
+
+    from boa_tpu_torch.inference.predictor import Predictor
+    from boa_tpu_torch.plans.plans import synthetic_plans
+    from boa_tpu_torch.tasks.class_maps import get_class_map
+    from boa_tpu_torch.testing.nnunet_checkpoint import save_checkpoint
+    from boa_tpu_torch.weights import convert as cv
+    from boa_tpu_torch.weights import manager, sharing
+    from boa_tpu_torch.weights.store import ModelStore, init_params_numpy
+
+    res: dict = {}
+    tid = 917
+    names = ["background"] + list(get_class_map("total").values())
+    plans = synthetic_plans(num_classes=len(names), patch_size=(128, 128, 128),
+                            spacing=(1.5, 1.5, 1.5), features=WEIGHTS_FEATURES,
+                            label_names=names[1:])
+    cfg = plans.arch_config()
+    params = init_params_numpy(cfg, 23)
+    params["seg_heads"][-1]["b"] = params["seg_heads"][-1]["b"] + np.random.default_rng(
+        23).normal(0, 3.0, len(names)).astype(np.float32)
+    src = root / "release" / f"Dataset{tid}_Weights"
+    mdir = src / "nnUNetTrainer__nnUNetPlans__3d_fullres"
+    (mdir / "fold_0").mkdir(parents=True)
+    (mdir / "plans.json").write_text(json.dumps(plans.plans))
+    (mdir / "dataset.json").write_text(json.dumps(plans.dataset))
+    save_checkpoint(mdir / "fold_0" / "checkpoint_final.pth", params, cfg)
+    t0 = time.perf_counter()
+    with zipfile.ZipFile(root / "release" / f"Dataset{tid}_Weights.zip", "w") as z:
+        for p in sorted(src.rglob("*")):
+            if p.is_file():
+                z.write(p, p.relative_to(src.parent))
+    res["release_zip_s"] = time.perf_counter() - t0
+
+    def run(argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            manager.main(argv)
+        return buf.getvalue(), time.perf_counter() - t
+
+    roots = {}
+    out, res["import_s"] = run(["import", str(mdir), "--root", str(root / "imported")])
+    assert "checked 1 fold(s) on cuda" in out, out
+    roots["import"] = root / "imported"
+    before = os.environ.get("BOA_WEIGHTS_PATH")
+    os.environ["BOA_WEIGHTS_PATH"] = str(root / "imported")
+    try:
+        listed, _ = run(["list"])
+    finally:
+        if before is None:
+            del os.environ["BOA_WEIGHTS_PATH"]
+        else:
+            os.environ["BOA_WEIGHTS_PATH"] = before
+    res["list"] = listed.splitlines()
+    assert f"Dataset{tid}_Weights" in res["list"], listed
+    out, res["create_synthetic_s"] = run(["create-synthetic", "--task", "total_fast",
+                                          "--root", str(root / "synthetic")])
+    assert "checked 1 fold(s) on cuda" in out, out
+    handler = lambda *a, **k: http.server.SimpleHTTPRequestHandler(  # noqa: E731
+        *a, directory=str(root / "release"), **k)
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        manager.WEIGHT_URLS[tid] = (f"Dataset{tid}_Weights", f"{base}/Dataset{tid}_Weights.zip")
+        t0 = time.perf_counter()
+        manager.download_task_weights(tid, root / "downloaded")
+        res["download_s"] = time.perf_counter() - t0
+        roots["download"] = root / "downloaded"
+        t0 = time.perf_counter()
+        sharing.export_pretrained_model(tid, root / "release" / "shared.zip", folds=(0,),
+                                        root=root / "imported")
+        sharing.install_model_from_zip(root / "release" / "shared.zip", root / "installed")
+        sharing.download_and_install_from_url(f"{base}/shared.zip", root / "fetched")
+        res["sharing_s"] = time.perf_counter() - t0
+        roots["install"] = root / "installed"
+        roots["url"] = root / "fetched"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        del manager.WEIGHT_URLS[tid]
+    n_verified = manager.verify_model_dirs([root / "downloaded", root / "installed",
+                                            root / "fetched"], torch.device("cuda"))
+    assert n_verified == 3, n_verified
+    # each against the model loaded directly from its .pth
+    direct = cv.convert_checkpoint(mdir / "fold_0" / "checkpoint_final.pth", cfg)
+    vol = np.asarray(case_img.data, np.float32)[48:208, 48:208, 16:144]
+    sp = tuple(float(s) for s in case_img.zooms)
+    with _plain_composite(rc):
+        want_plain = Predictor(plans=plans, fold_params=[direct], device="cuda").predict(vol, sp)
+    pred = Predictor(plans=plans, fold_params=[direct], device="cuda")
+    want = pred.predict(vol, sp)
+    res["tiles"] = pred.n_tiles
+    res["direct_kernels_vs_plain"] = float((want == want_plain).mean())
+    res["models"] = {}
+    for how, r in roots.items():
+        p_store, loaded = ModelStore(r).load(tid)
+        a, b = {}, {}
+        cv._flatten(loaded[0], "", a)
+        cv._flatten(direct, "", b)
+        same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in b)
+        with _plain_composite(rc):
+            got_plain = Predictor(plans=p_store, fold_params=loaded,
+                                  device="cuda").predict(vol, sp)
+        got = Predictor(plans=p_store, fold_params=loaded, device="cuda").predict(vol, sp)
+        res["models"][how] = {"params_equal": same,
+                              "plain_equal": bool(np.array_equal(got_plain, want_plain)),
+                              "kernels_agree": float((got == want).mean())}
+    return res
+
+
+def phase_train(torch, rc, pc) -> dict:
+    """The train -> serve loop of the README on the card, and the weights
+    commands. (a) A raw Medical-Segmentation-Decathlon-layout task of three
+    synthetic 256x256x160 CTs at about 1.5 mm (spacings differ, so two
+    cases resample) with blobs of the 117 `total` classes ->
+    `dataset_conversion.convert_msd_dataset` -> `plan_and_preprocess` on
+    the card (118 classes) -> `run_training` at `--patch 128 128 128`, batch
+    2, fold 0 with validation: total_fast's 6-stage 32->320 network with
+    deep supervision, SGD, bf16, augmentation on the card, one warm-up epoch
+    and one timed epoch of 10 iterations, the loop as the CLI runs it ->
+    `weights.manager export` as task 297 -> `predict_image(..., "total",
+    fast=True)` with the exported store. Prints the seconds of each stage,
+    the median seconds per iteration (the CUDA events between the timed
+    epoch's iterations, never waited for inside the loop), the loader-wait
+    share (the timed epoch's host time blocked on the next batch — the
+    prefetch queue, the pinned copy to the card and the augmentation's
+    launches — over its time), the device-wait share (the card's time idle
+    before each step's first work, waiting for the host, over the
+    iterations' time), the peak memory,
+    and the K1-K3 launches of the run (`launches_train`: each epoch's eval
+    forward on the last batch and the validation's tiles, tiles x (4, 1, 1);
+    the train step itself is eager). Checks: the validation summary and the
+    launches; the exported model's labels > 0.99 against the plain
+    composite with launches (4, 1, 1) per forward; on the trained state,
+    the loss finite and falling over 5 steps on one fixed batch, a bf16 step
+    within 2e-2 (loss) and 5e-2 (grad norm) relative of a float32 step from
+    the same state; a small float32 step on the card equal to the CPU's
+    within 1e-4. (b) The weights commands on the card: `manager import` of a
+    `.pth` results folder (`testing/nnunet_checkpoint.py`, 4 stages 32->256,
+    118 classes), `list`, `create-synthetic --task total_fast`, `download`
+    of its release zip from a localhost server, the sharing zip exported,
+    installed and fetched from the same server: every imported fold built
+    on the card, its parameters equal to the `.pth`'s converted directly,
+    its labels on the plain composite byte-identical to the direct model's
+    and > 0.99 on K1-K3."""
+    from pathlib import Path
+
+    from boa_tpu_torch.engine import dataset_conversion, plan_and_preprocess as pap
+    from boa_tpu_torch.inference.pipeline import predict_image
+    from boa_tpu_torch.io import nifti
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.tasks.registry import TASKS
+    from boa_tpu_torch.train.dataloader import DataLoader, to_device
+    from boa_tpu_torch.train.dataset import CaseStore, load_or_create_splits
+    from boa_tpu_torch.train.run_training import build_trainer, run_training
+    from boa_tpu_torch.train.trainer import make_train_step
+    from boa_tpu_torch.weights import manager
+    from boa_tpu_torch.weights.store import ModelStore
+
+    res: dict = {"stages_s": {}}
+    stages = res["stages_s"]
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+    n_classes = 118
+
+    # --- (a) raw dataset -> conversion -> plans and case store
+    t0 = time.perf_counter()
+    task = _train_raw_task(root, n_classes)
+    stages["raw_dataset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = dataset_conversion.convert_msd_dataset(task, raw_root=root / "raw")
+    stages["dataset_conversion"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans = pap.plan_and_preprocess(raw, root / "prep", device="gpu")
+    torch.cuda.synchronize()
+    stages["plan_and_preprocess"] = time.perf_counter() - t0
+    store = CaseStore(root / "prep" / "cases")
+    shapes = {cid: list(store.load_case(cid).seg.shape) for cid in store.case_ids()}
+
+    # --- training, fold 0, with validation
+    val = load_or_create_splits(store)[0]["val"]
+    patch = (128, 128, 128)
+    val_tiles = sum(len(pp.tile_starts(pp.pad_to_patch(np.zeros([1] + shapes[c], np.int8),
+                                                       patch)[0].shape[-3:], patch, 0.5))
+                    for c in val)
+    rc.reset_launches()
+    pc.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = run_training(store.root, root / "train", patch=patch, batch_size=2, epochs=2,
+                        iters=TRAIN_ITERS, fold=0, validate=True, device="gpu")
+    stages["run_training"] = time.perf_counter() - t0
+    train_launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the trained state, resumed from the run's final checkpoint
+    trainer = build_trainer(root / "resumed", patch, n_classes, epochs=2,
+                            iters=TRAIN_ITERS, device="gpu")[0]
+    trainer.load_checkpoint(root / "train" / "checkpoint_final.pkl")
+    logs = trainer.state.logs
+    timed = logs[1]
+    res["loop"] = {
+        "raw_shape": list(TRAIN_SHAPE), "spacings": TRAIN_SPACINGS, "case_shapes": shapes,
+        "classes": n_classes, "plans_patch": plans["configurations"]["3d_fullres"]["patch_size"],
+        "plans_spacing": plans["configurations"]["3d_fullres"]["spacing"],
+        "sec_per_iter_median": statistics.median(timed["iter_s"]),
+        "sec_per_iter": timed["iter_s"], "warmup_epoch_s": logs[0]["epoch_time"],
+        "timed_epoch_s": timed["epoch_time"],
+        "loader_wait_share": timed["loader_wait_s"] / timed["epoch_time"],
+        "loader_wait_s": timed["loader_wait_s"],
+        "device_wait_share": timed["device_wait_s"] / sum(timed["iter_s"]),
+        "device_wait_s": timed["device_wait_s"],
+        "run_training_s": {"setup": last["setup_s"],
+                           "epochs": [e["epoch_time"] for e in logs],
+                           "checkpoints": [e["checkpoint_s"] for e in logs],
+                           "final_checkpoint": last["final_checkpoint_s"],
+                           "validation": last["validation_s"],
+                           "validation_parts": last["validation"]["seconds"]},
+        "losses": [e["loss"] for e in logs], "grad_norms": [e["grad_norm"] for e in logs],
+        "pseudo_dice": [e["dice"] for e in logs],
+        "validation_dice": last["validation"]["foreground_mean"]["Dice"],
+        "val_cases": val, "val_tiles": val_tiles, "peak_mem_gib": peak,
+        "launches": train_launches, "stages_s": dict(stages)}
+    emit({"phase": "train", "part": "loop", **res["loop"]})
+    assert all(np.isfinite(e["loss"]) for e in logs), logs
+    assert train_launches == _want_launches(len(logs) + val_tiles), train_launches
+    assert (root / "train" / "validation" / "summary.json").exists()
+
+    # --- export -> serve
+    t0 = time.perf_counter()
+    manager.main(["export", str(root / "train"), "--task-id", "297", "--name",
+                  "trained_total_fast", "--root", str(root / "store"),
+                  "--trainer", TASKS["total_fast"].trainer])
+    stages["export"] = time.perf_counter() - t0
+    img = nifti.load(raw / "imagesTr" / "synth_000_0000.nii.gz")
+    served = ModelStore(root / "store")
+    predict_image(img, "total", served, fast=True, device="cuda")   # weights to the card
+    calls: list = []
+    rc.reset_launches()
+    pc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _counting_forwards(calls):
+        r = predict_image(img, "total", served, fast=True, device="cuda")
+    torch.cuda.synchronize()
+    stages["predict_image"] = time.perf_counter() - t0
+    serve_launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    with _plain_composite(rc):
+        plain = predict_image(img, "total", served, fast=True, device="cuda")
+    agree = float((np.asarray(r.seg.data) == np.asarray(plain.seg.data)).mean())
+    res["serve"] = {"forwards": len(calls), "launches": serve_launches, "agree_plain": agree,
+                    "labels_present": int(len(np.unique(np.asarray(r.seg.data)))),
+                    "export_s": stages["export"], "predict_s": stages["predict_image"]}
+    emit({"phase": "train", "part": "serve", **res["serve"]})
+    assert serve_launches == _want_launches(len(calls)) and calls, serve_launches
+    assert agree > 0.99, agree
+
+    # --- checks on the trained state
+    t_part = time.perf_counter()
+    loader = DataLoader(store, patch, 2, seed=3, case_ids=load_or_create_splits(store)[0]
+                        ["train"])
+    x, y = to_device(loader.next_batch(), torch.device("cuda"))
+    bf16_step = make_train_step(trainer.cfg)
+    fp32_step = make_train_step(dataclasses.replace(trainer.cfg, compute_dtype="float32"))
+    m_b, o_b = _snapshot(torch, trainer)
+    m_f, o_f = _snapshot(torch, trainer)
+    sb = bf16_step(m_b, o_b, x, y, 1e-2)
+    sf = fp32_step(m_f, o_f, x, y, 1e-2)
+    same_state = {"loss": [float(sb["loss"]), float(sf["loss"])],
+                  "grad_norm": [float(sb["grad_norm"]), float(sf["grad_norm"])]}
+    del m_b, o_b, m_f, o_f
+    five = [float(bf16_step(trainer.state.model, trainer.state.optimizer, x, y, 1e-2)["loss"])
+            for _ in range(5)]
+    small = _small_step_card_vs_cpu(torch)
+    res["checks"] = {"fixed_batch_losses": five, "bf16_vs_fp32": same_state,
+                     "small_card_vs_cpu": small, "part_s": time.perf_counter() - t_part}
+    emit({"phase": "train", "part": "checks", **res["checks"]})
+    assert all(np.isfinite(five)) and five[-1] < five[0], five
+    assert abs(same_state["loss"][0] - same_state["loss"][1]) <= 2e-2 * abs(
+        same_state["loss"][1]), same_state
+    assert abs(same_state["grad_norm"][0] - same_state["grad_norm"][1]) <= 5e-2 * abs(
+        same_state["grad_norm"][1]), same_state
+    assert abs(small["loss"][0] - small["loss"][1]) <= 1e-4 * abs(small["loss"][1]), small
+    assert abs(small["grad_norm"][0] - small["grad_norm"][1]) <= 1e-4 * abs(
+        small["grad_norm"][1]), small
+    assert small["params_max_abs_diff"] <= 1e-4, small
+    del trainer
+
+    # --- (b) the weights commands
+    t_part = time.perf_counter()
+    res["weights"] = _weights_commands(torch, rc, root, img)
+    res["weights"]["part_s"] = time.perf_counter() - t_part
+    emit({"phase": "train", "part": "weights", **res["weights"]})
+    assert res["weights"]["direct_kernels_vs_plain"] > 0.99, res["weights"]
+    for how, m in res["weights"]["models"].items():
+        assert m["params_equal"] and m["plain_equal"] and m["kernels_agree"] > 0.99, (how, m)
+    tmp_dir.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["launches"] = train_launches
+    emit({"phase": "train", "part": "done", "phase_s": res["phase_s"]})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -3912,7 +4411,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
 
 
 def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, tools,
-             serve, pacs) -> list[dict]:
+             serve, pacs, train) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -3923,7 +4422,8 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
                                 launches_engine=engine["pth"]["launches"][name],
                                 launches_tools=tools["launches"][name],
                                 launches_serve=serve["stream"]["launches"][name],
-                                launches_pacs=pacs["launches"][name]))
+                                launches_pacs=pacs["launches"][name],
+                                launches_train=train["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -3947,6 +4447,9 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
         row["launches_serve"] = serve["stream"]["launches"][name]
         # the PACS worker's series (A), from the Orthanc callback to the sinks
         row["launches_pacs"] = pacs["launches"][name]
+        # the train -> serve loop's run_training: each epoch's eval forward
+        # and the validation's tiles (the train step is eager)
+        row["launches_train"] = train["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -4011,9 +4514,11 @@ def main() -> int:
         serve = phase_serve(torch, rc, pc)
     if "pacs" in phases:
         pacs = phase_pacs(torch, rc, pc)
+    if "train" in phases:
+        train = phase_train(torch, rc, pc)
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api,
-                                  engine, tools, serve, pacs)})
+                                  engine, tools, serve, pacs, train)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

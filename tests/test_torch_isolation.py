@@ -44,7 +44,14 @@ front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"
          "boa_tpu_torch.pacs", "boa_tpu_torch.pacs.imports", "boa_tpu_torch.pacs.util",
          "boa_tpu_torch.pacs.worker", "boa_tpu_torch.pacs.on_change",
          "boa_tpu_torch.io.storage", "boa_tpu_torch.templates",
-         "boa_tpu_torch.templates.generate"}
+         "boa_tpu_torch.templates.generate", "boa_tpu_torch.train.losses",
+         "boa_tpu_torch.train.optim", "boa_tpu_torch.train.augment",
+         "boa_tpu_torch.train.dataset", "boa_tpu_torch.train.dataloader",
+         "boa_tpu_torch.train.trainer", "boa_tpu_torch.train.cascade",
+         "boa_tpu_torch.train.run_training", "boa_tpu_torch.engine.planner",
+         "boa_tpu_torch.engine.plan_and_preprocess",
+         "boa_tpu_torch.engine.dataset_conversion", "boa_tpu_torch.weights.manager",
+         "boa_tpu_torch.weights.sharing"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -57,9 +64,11 @@ def test_import_loads_no_jax_and_no_reference_package():
     the DICOM-SEG and RTSTRUCT writers, the contour tracer, the tools) and
     the model-folder tools' (engine/, train/variants.py, the checkpoint
     writer in testing/), the serving layer's (serve/), the TotalSegmentator
-    tools' with the registration and the GBM fitter among them, and the
+    tools' with the registration and the GBM fitter among them, the
     PACS layer's (pacs/, the sinks in io/storage.py, templates/), with a
-    stub for the `orthanc` module that Orthanc's runtime provides."""
+    stub for the `orthanc` module that Orthanc's runtime provides, and the
+    train -> serve loop's (train/, the planner, preprocessing and dataset
+    conversion in engine/, the weights manager and sharing)."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -166,3 +175,20 @@ def test_model_folder_entry_points_default_to_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             make_unet(cfg)
         assert make_unet(cfg, "cpu").seg_heads[0].weight.device.type == "cpu"
+
+
+_LOOP = r"""
+import sys
+import boa_tpu_torch.train.run_training, boa_tpu_torch.engine.plan_and_preprocess
+import boa_tpu_torch.weights.manager
+bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "boa_tpu")]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_train_serve_entry_points_load_no_jax():
+    """The three commands of the train -> serve loop, imported alone."""
+    r = subprocess.run([sys.executable, "-c", _LOOP], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
