@@ -4,7 +4,8 @@ ensembling and postprocessing determination (`ensembling.py`), evaluation
 (`planner.py`), preprocessing (`plan_and_preprocess.py`) and dataset
 conversion (`dataset_conversion.py`), the counterparts of nnUNetv2_predict,
 _ensemble, _find_best_configuration, _evaluate_folder,
-_plan_and_preprocess and _convert_MSD_dataset."""
+_plan_and_preprocess and _convert_MSD_dataset; and the training benchmark
+(`benchmark.py`, nnU-Net's nnUNetTrainerBenchmark_5epochs)."""
 
 from boa_tpu_torch.engine.ensembling import (  # noqa: F401
     apply_postprocessing,

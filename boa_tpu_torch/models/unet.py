@@ -145,6 +145,19 @@ def _in_dims(cfg: ArchConfig) -> tuple[int, ...]:
     return (2, 3) if cfg.two_d else (2, 3, 4)
 
 
+class InstanceNorm(nn.InstanceNorm3d):
+    """`nn.InstanceNorm3d`'s parameters with the reference's statistics
+    (`instance_norm` over `dims`)."""
+
+    def __init__(self, c: int, eps: float, affine: bool, dims: tuple[int, ...],
+                 device=None):
+        super().__init__(c, eps=eps, affine=affine, device=device)
+        self.dims = dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.weight, self.bias, self.eps, self.dims)
+
+
 class ConvBlock(nn.Module):
     """Conv3d -> InstanceNorm3d(affine) -> LeakyReLU (no LeakyReLU with
     `nonlin=False`: BasicBlockD's conv2 and skip)."""
@@ -155,15 +168,12 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv3d(cin, cout, tuple(kernel), tuple(stride),
                               padding=tuple((k - 1) // 2 for k in kernel),
                               bias=cfg.conv_bias, device=device)
-        self.norm = nn.InstanceNorm3d(cout, eps=cfg.norm_eps,
-                                      affine=cfg.norm_affine, device=device)
+        self.norm = InstanceNorm(cout, cfg.norm_eps, cfg.norm_affine, _in_dims(cfg),
+                                 device=device)
         self.slope = cfg.nonlin_slope if nonlin else None
-        self.dims = _in_dims(cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        x = instance_norm(x, self.norm.weight, self.norm.bias, self.norm.eps,
-                          self.dims)
+        x = self.norm(self.conv(x))
         return x if self.slope is None else _lrelu(x, self.slope)
 
 

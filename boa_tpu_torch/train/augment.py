@@ -18,6 +18,11 @@ the reference at the same parameters. Per-sample probabilities blend with
 back to the host. The resamplers gather with clamped indices, as the
 reference's `_sample_trilinear` / `_sample_nearest` do.
 Tensors: x (N, X, Y, Z, C) float32, y (N, X, Y, Z) int.
+
+`part=(i, k)` says the batch is the i-th of k equal parts of a larger one
+(a dp rank's rows, `train/dataloader.py:DataLoader(part=...)`): every draw
+is made for the whole batch and the part's rows of it applied, so the
+parts put together are the whole batch's augmentation.
 """
 
 from __future__ import annotations
@@ -31,6 +36,20 @@ import torch.nn.functional as F
 
 def _uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     return lo + (hi - lo) * torch.rand(shape, generator=gen, device=gen.device)
+
+
+def _rows(x: torch.Tensor, part) -> tuple[int, slice]:
+    """(the whole batch's rows, `x`'s slice of them) for `part` = (i, k),
+    or `x`'s own rows for None."""
+    if part is None:
+        return x.shape[0], slice(None)
+    i, k = part
+    n = x.shape[0]
+    return n * k, slice(i * n, (i + 1) * n)
+
+
+def _mine(prm: dict, rows: slice) -> dict:
+    return {k: v[rows] for k, v in prm.items()}
 
 
 def _blend(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,11 +147,12 @@ def spatial_apply(x: torch.Tensor, y: torch.Tensor, angles: torch.Tensor,
 
 def spatial_transform(gen, x, y, p_rotation: float = 0.2, p_scaling: float = 0.2,
                       rot_max: float = 0.5235987755982988,
-                      scale_range: tuple[float, float] = (0.7, 1.4)):
+                      scale_range: tuple[float, float] = (0.7, 1.4), part=None):
     """Singleton-z patches (the 2d configuration) rotate in-plane only."""
-    prm = draw_spatial(gen, x.shape[0], p_rotation, p_scaling, rot_max, scale_range,
+    n, rows = _rows(x, part)
+    prm = draw_spatial(gen, n, p_rotation, p_scaling, rot_max, scale_range,
                        in_plane_only=x.shape[3] == 1)
-    return spatial_apply(x, y, **prm)
+    return spatial_apply(x, y, **_mine(prm, rows))
 
 
 # ---------------------------------------------------------------- intensity
@@ -146,8 +166,9 @@ def noise_apply(x, mask, var, noise):
     return _blend(mask, x + noise * torch.sqrt(var).reshape(-1, 1, 1, 1, 1), x)
 
 
-def gaussian_noise(gen, x, p: float = 0.1, max_var: float = 0.1):
-    return noise_apply(x, **draw_noise(gen, x.shape, p, max_var))
+def gaussian_noise(gen, x, p: float = 0.1, max_var: float = 0.1, part=None):
+    n, rows = _rows(x, part)
+    return noise_apply(x, **_mine(draw_noise(gen, (n, *x.shape[1:]), p, max_var), rows))
 
 
 def _gauss_kernel1d(sigma: torch.Tensor, radius: int = 3) -> torch.Tensor:
@@ -184,8 +205,10 @@ def blur_apply(x, mask, sigma, radius: int):
     return _blend(mask, blurred, x)
 
 
-def gaussian_blur(gen, x, p: float = 0.2, sigma_range: tuple[float, float] = (0.5, 1.0)):
-    return blur_apply(x, **draw_blur(gen, x.shape[0], p, sigma_range),
+def gaussian_blur(gen, x, p: float = 0.2, sigma_range: tuple[float, float] = (0.5, 1.0),
+                  part=None):
+    n, rows = _rows(x, part)
+    return blur_apply(x, **_mine(draw_blur(gen, n, p, sigma_range), rows),
                       radius=blur_radius(x.shape, sigma_range))
 
 
@@ -199,8 +222,10 @@ def brightness_apply(x, mask, factor):
     return _blend(mask, x * factor, x)
 
 
-def brightness(gen, x, p: float = 0.15, rng: tuple[float, float] = (0.75, 1.25)):
-    return brightness_apply(x, **draw_factor(gen, x.shape[0], p, rng))
+def brightness(gen, x, p: float = 0.15, rng: tuple[float, float] = (0.75, 1.25),
+               part=None):
+    n, rows = _rows(x, part)
+    return brightness_apply(x, **_mine(draw_factor(gen, n, p, rng), rows))
 
 
 def contrast_apply(x, mask, factor):
@@ -213,8 +238,9 @@ def contrast_apply(x, mask, factor):
     return _blend(mask, out, x)
 
 
-def contrast(gen, x, p: float = 0.15, rng: tuple[float, float] = (0.75, 1.25)):
-    return contrast_apply(x, **draw_factor(gen, x.shape[0], p, rng))
+def contrast(gen, x, p: float = 0.15, rng: tuple[float, float] = (0.75, 1.25), part=None):
+    n, rows = _rows(x, part)
+    return contrast_apply(x, **_mine(draw_factor(gen, n, p, rng), rows))
 
 
 def _nearest_idx(m: int, n: int) -> np.ndarray:
@@ -294,8 +320,9 @@ def lowres_apply(x, mask, level, zoom_range: tuple[float, float] = (0.5, 1.0),
 
 def simulate_low_resolution(gen, x, p: float = 0.25,
                             zoom_range: tuple[float, float] = (0.5, 1.0),
-                            n_levels: int = 4):
-    return lowres_apply(x, **draw_lowres(gen, x.shape[0], p, n_levels),
+                            n_levels: int = 4, part=None):
+    n, rows = _rows(x, part)
+    return lowres_apply(x, **_mine(draw_lowres(gen, n, p, n_levels), rows),
                         zoom_range=zoom_range, n_levels=n_levels)
 
 
@@ -315,8 +342,9 @@ def gamma_apply(x, mask, factor, invert: bool = False):
 
 
 def gamma(gen, x, p: float = 0.3, rng: tuple[float, float] = (0.7, 1.5),
-          invert: bool = False):
-    return gamma_apply(x, **draw_factor(gen, x.shape[0], p, rng), invert=invert)
+          invert: bool = False, part=None):
+    n, rows = _rows(x, part)
+    return gamma_apply(x, **_mine(draw_factor(gen, n, p, rng), rows), invert=invert)
 
 
 def draw_mirror(gen, n: int, n_axes: int, p: float = 0.5) -> torch.Tensor:
@@ -336,50 +364,51 @@ def mirror_apply(x, y, flips: torch.Tensor, axes: tuple[int, ...]):
     return torch.stack(xs), torch.stack(ys)
 
 
-def mirror(gen, x, y, axes: tuple[int, ...] = (0, 1, 2), p: float = 0.5):
+def mirror(gen, x, y, axes: tuple[int, ...] = (0, 1, 2), p: float = 0.5, part=None):
     """Per-sample, per-axis flips."""
-    return mirror_apply(x, y, draw_mirror(gen, x.shape[0], len(axes), p), axes)
+    n, rows = _rows(x, part)
+    return mirror_apply(x, y, draw_mirror(gen, n, len(axes), p)[rows], axes)
 
 
 # ---------------------------------------------------------------- pipelines
 def _intensity(gen, x, *, noise=(0.1, 0.1), blur=(0.2, (0.5, 1.0)),
                bright=(0.15, (0.75, 1.25)), contr=(0.15, (0.75, 1.25)),
                lowres=(0.25, (0.5, 1.0)), gamma_inv=(0.1, (0.7, 1.5)),
-               gamma_plain=(0.3, (0.7, 1.5))):
-    x = gaussian_noise(gen, x, *noise)
-    x = gaussian_blur(gen, x, *blur)
-    x = brightness(gen, x, *bright)
-    x = contrast(gen, x, *contr)
-    x = simulate_low_resolution(gen, x, *lowres)
-    x = gamma(gen, x, *gamma_inv, invert=True)
-    return gamma(gen, x, *gamma_plain, invert=False)
+               gamma_plain=(0.3, (0.7, 1.5)), part=None):
+    x = gaussian_noise(gen, x, *noise, part=part)
+    x = gaussian_blur(gen, x, *blur, part=part)
+    x = brightness(gen, x, *bright, part=part)
+    x = contrast(gen, x, *contr, part=part)
+    x = simulate_low_resolution(gen, x, *lowres, part=part)
+    x = gamma(gen, x, *gamma_inv, invert=True, part=part)
+    return gamma(gen, x, *gamma_plain, invert=False, part=part)
 
 
 @torch.no_grad()
 def augment_batch(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
-                  mirror_axes: tuple[int, ...] = ()):
+                  mirror_axes: tuple[int, ...] = (), part=None):
     """nnU-Net's training transform stack. x (N, X, Y, Z, C) float32
     normalized, y (N, X, Y, Z) int -> (x', y' int32)."""
-    x, y = spatial_transform(gen, x, y)
-    x = _intensity(gen, x)
+    x, y = spatial_transform(gen, x, y, part=part)
+    x = _intensity(gen, x, part=part)
     if mirror_axes:
-        x, y = mirror(gen, x, y, axes=mirror_axes)
+        x, y = mirror(gen, x, y, axes=mirror_axes, part=part)
     return x, y.to(torch.int32)
 
 
 @torch.no_grad()
 def augment_batch_da5(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
-                      mirror_axes: tuple[int, ...] = (0, 1, 2)):
+                      mirror_axes: tuple[int, ...] = (0, 1, 2), part=None):
     """The DA5 preset (`variants/data_augmentation/nnUNetTrainerDA5.py`):
     wider rotations and scales, higher probabilities."""
     x, y = spatial_transform(gen, x, y, p_rotation=0.6, p_scaling=0.6,
-                             rot_max=0.9599310885968813, scale_range=(0.6, 1.6))
+                             rot_max=0.9599310885968813, scale_range=(0.6, 1.6), part=part)
     x = _intensity(gen, x, noise=(0.3, 0.15), blur=(0.3, (0.3, 1.5)),
                    bright=(0.3, (0.65, 1.35)), contr=(0.3, (0.65, 1.35)),
                    lowres=(0.4, (0.4, 1.0)), gamma_inv=(0.15, (0.6, 1.6)),
-                   gamma_plain=(0.4, (0.6, 1.6)))
+                   gamma_plain=(0.4, (0.6, 1.6)), part=part)
     if mirror_axes:
-        x, y = mirror(gen, x, y, axes=mirror_axes)
+        x, y = mirror(gen, x, y, axes=mirror_axes, part=part)
     return x, y.to(torch.int32)
 
 
@@ -408,16 +437,10 @@ def binary_noise_apply(onehot: torch.Tensor, apply, dilate, radius,
     return v[0].permute(1, 2, 3, 0)
 
 
-def _binary_noise(gen, onehot: torch.Tensor, p: float = 0.4, max_radius: int = 8):
-    return binary_noise_apply(onehot, **draw_binary_noise(gen, onehot.shape[-1], p,
-                                                          max_radius),
-                              max_radius=max_radius)
-
-
 @torch.no_grad()
 def augment_batch_cascade(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
                           prev: torch.Tensor, fg_labels: tuple[int, ...],
-                          mirror_axes: tuple[int, ...] = ()):
+                          mirror_axes: tuple[int, ...] = (), part=None):
     """Cascade transforms (`nnUNetTrainer.py:802-829`): the default stack,
     the previous stage's labels warped by the same spatial transform
     (nearest), one-hot over `fg_labels`, binary dilate/erode noise p 0.4
@@ -425,12 +448,14 @@ def augment_batch_cascade(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor
     component dropout runs on the host patch (`dataloader.py`). Returns x
     with C + len(fg_labels) channels."""
     segs = torch.stack([y, prev], dim=-1)
-    x, segs = spatial_transform(gen, x, segs)
+    x, segs = spatial_transform(gen, x, segs, part=part)
     y, prev = segs[..., 0], segs[..., 1]
-    x = _intensity(gen, x)
+    x = _intensity(gen, x, part=part)
     onehot = torch.stack([(prev == lb) for lb in fg_labels], dim=-1).to(x.dtype)
-    onehot = torch.stack([_binary_noise(gen, o) for o in onehot])
+    n, rows = _rows(x, part)
+    draws = [draw_binary_noise(gen, len(fg_labels)) for _ in range(n)][rows]
+    onehot = torch.stack([binary_noise_apply(o, **d) for o, d in zip(onehot, draws)])
     x = torch.cat([x, onehot], dim=-1)
     if mirror_axes:
-        x, y = mirror(gen, x, y, axes=mirror_axes)
+        x, y = mirror(gen, x, y, axes=mirror_axes, part=part)
     return x, y.to(torch.int32)

@@ -14,6 +14,11 @@ On the card, one producer thread builds the batches and copies each into
 pinned memory (`prefetched(pin=True)`); `to_device` sends it with
 ``non_blocking=True``, so the copy overlaps the step before it.
 Augmentation runs on the device (`train/augment.py`).
+
+On a device mesh each dp rank loads its part of the global batch
+(`part=(i, k)`: rows i*B/k to (i+1)*B/k): the random draws are those of the
+whole batch, so the parts put together are the one-process batch, but only
+the rank's own rows are cropped and copied.
 """
 
 from __future__ import annotations
@@ -73,7 +78,8 @@ def cascade_component_dropout(prev: np.ndarray, rng: np.random.RandomState,
 
 class DataLoader:
     """Yields (data (N,X,Y,Z,C) fp32, seg (N,X,Y,Z) int32) numpy batches in
-    the channels-last layout the network consumes."""
+    the channels-last layout the network consumes; with `part=(i, k)` the
+    i-th of k equal parts of each batch of `batch_size` rows."""
 
     def __init__(self, store: CaseStore, patch_size: tuple[int, int, int],
                  batch_size: int, oversample_percent: float = 0.33,
@@ -81,10 +87,16 @@ class DataLoader:
                  cache_cases: bool = True,
                  probabilistic_oversampling: bool = False,
                  cascade: bool = False,
-                 cascade_cc_dropout_p: float = 0.2):
+                 cascade_cc_dropout_p: float = 0.2,
+                 part: tuple[int, int] | None = None):
         self.store = store
         self.patch_size = tuple(patch_size)
         self.batch_size = batch_size
+        i, k = part or (0, 1)
+        if batch_size % k or not 0 <= i < k:
+            raise ValueError(f"part {part} of a batch of {batch_size}")
+        n = batch_size // k
+        self.rows = range(i * n, (i + 1) * n)
         # positional round rule by default; the probabilistic variant
         # (`nnUNetTrainer_probabilisticOversampling`, data_loader.py:65-77)
         # draws a Bernoulli(percent) per sample instead
@@ -117,8 +129,10 @@ class DataLoader:
             self._cache[cid] = c
         return c
 
-    def _sample_patch(self, case: Case, force_fg: bool
+    def _sample_patch(self, case: Case, force_fg: bool, keep: bool = True
                       ) -> tuple[np.ndarray, np.ndarray]:
+        """(data, seg, prev seg or None) of a random patch of `case`; with
+        `keep` False only its draws are made (None for data and seg)."""
         data, seg = case.data, case.seg
         shape = seg.shape
         ps = self.patch_size
@@ -144,14 +158,17 @@ class DataLoader:
         vlb = [max(0, bbox_lbs[i]) for i in range(3)]
         vub = [min(shape[i], bbox_ubs[i]) for i in range(3)]
         sl = tuple(slice(vlb[i], vub[i]) for i in range(3))
-        dpatch = np.zeros((data.shape[0], *ps), np.float32)
-        spatch = np.full(ps, -1, np.int32)  # oob seg = -1 (reference pad)
         ins = tuple(slice(vlb[i] - bbox_lbs[i], vub[i] - bbox_lbs[i])
                     for i in range(3))
-        dpatch[(slice(None), *ins)] = data[(slice(None), *sl)]
-        spatch[ins] = seg[sl]
+        dpatch = spatch = None
+        if keep:
+            dpatch = np.zeros((data.shape[0], *ps), np.float32)
+            spatch = np.full(ps, -1, np.int32)  # oob seg = -1 (reference pad)
+            dpatch[(slice(None), *ins)] = data[(slice(None), *sl)]
+            spatch[ins] = seg[sl]
         if not self.cascade:
             return dpatch, spatch, None
+        # the dropout's draws depend on the labels: made for every row
         ppatch = np.zeros(ps, np.int32)  # oob prev seg = background
         ppatch[ins] = case.prev_seg[sl]
         if self.cascade_cc_dropout_p > 0:
@@ -163,15 +180,19 @@ class DataLoader:
         """(x, y) batches — or (x, y, prev_seg) in cascade mode."""
         ps = self.patch_size
         n_ch = self._case(self.case_ids[0]).data.shape[0]
-        x = np.empty((self.batch_size, *ps, n_ch), np.float32)
-        y = np.empty((self.batch_size, *ps), np.int32)
-        prev = np.empty((self.batch_size, *ps), np.int32) if self.cascade \
-            else None
-        for i in range(self.batch_size):
+        n = len(self.rows)
+        x = np.empty((n, *ps, n_ch), np.float32)
+        y = np.empty((n, *ps), np.int32)
+        prev = np.empty((n, *ps), np.int32) if self.cascade else None
+        for row in range(self.batch_size):
             cid = self.case_ids[self.rng.randint(len(self.case_ids))]
             force_fg = (self.rng.uniform() < self.oversample_percent
-                        if self.probabilistic else self.oversample[i])
-            dp, sp, pp = self._sample_patch(self._case(cid), force_fg)
+                        if self.probabilistic else self.oversample[row])
+            keep = row in self.rows
+            dp, sp, pp = self._sample_patch(self._case(cid), force_fg, keep)
+            if not keep:
+                continue
+            i = row - self.rows.start
             x[i] = np.moveaxis(dp, 0, -1)
             # out-of-bounds seg padding (-1) becomes background before the
             # loss, like the reference's RemoveLabelTransform(-1, 0) first

@@ -35,11 +35,29 @@ def _dice(intersect, sum_pred, sum_gt, batch_dice: bool, smooth: float):
     return (2.0 * intersect + smooth) / torch.clamp(sum_gt + sum_pred + smooth, min=1e-8)
 
 
+def _global(reduce, batch_dice: bool, *sums):
+    """The batch dice sums over every rank of a device mesh: each summed over
+    the local batch, then `reduce`d (all-reduced) in one call."""
+    if not batch_dice:
+        raise ValueError("a loss over a device mesh needs batch dice")
+    parts = [t.sum(0) for t in sums]
+    flat = reduce(torch.cat([p.reshape(-1) for p in parts]))
+    return [f.view_as(p) for f, p in zip(torch.split(flat, [p.numel() for p in parts]), parts)]
+
+
+def _mean(values: torch.Tensor, reduce) -> torch.Tensor:
+    if reduce is None:
+        return values.mean()
+    s = reduce(torch.stack([values.sum(), values.new_tensor(float(values.numel()))]))
+    return s[0] / s[1]
+
+
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, *,
                    batch_dice: bool = True, do_bg: bool = False,
                    smooth: float = 1e-5,
-                   loss_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Memory-efficient soft dice (`dice.py:58-120`), the negated score."""
+                   loss_mask: torch.Tensor | None = None, reduce=None) -> torch.Tensor:
+    """Memory-efficient soft dice (`dice.py:58-120`), the negated score.
+    `reduce` (a sum over the ranks of a mesh) makes the sums global."""
     n_cls = logits.shape[-1]
     probs = torch.softmax(logits.float(), dim=-1)
     y = _one_hot(target, n_cls)
@@ -55,6 +73,9 @@ def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, *,
         intersect = (probs * y).sum(sp)
         sum_pred = probs.sum(sp)
         sum_gt = y.sum(sp)
+    if reduce is not None:
+        intersect, sum_pred, sum_gt = _global(reduce, batch_dice, intersect, sum_pred, sum_gt)
+        return -_dice(intersect, sum_pred, sum_gt, False, smooth).mean()
     return -_dice(intersect, sum_pred, sum_gt, batch_dice, smooth).mean()
 
 
@@ -63,13 +84,14 @@ def _nll(logp: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_ce_loss(logits: torch.Tensor, target: torch.Tensor,
-                    loss_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Cross-entropy on integer labels (RobustCrossEntropyLoss)."""
+                    loss_mask: torch.Tensor | None = None, reduce=None) -> torch.Tensor:
+    """Cross-entropy on integer labels (RobustCrossEntropyLoss); with
+    `reduce`, the mean over every rank's voxels."""
     nll = _nll(torch.log_softmax(logits.float(), dim=-1), target)
     if loss_mask is not None:
         m = loss_mask.float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return nll.mean()
+    return _mean(nll, reduce)
 
 
 def topk_ce_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -89,9 +111,11 @@ def topk_ce_loss(logits: torch.Tensor, target: torch.Tensor,
 def dice_ce_loss(logits: torch.Tensor, target: torch.Tensor, *,
                  batch_dice: bool = True, weight_ce: float = 1.0,
                  weight_dice: float = 1.0, smooth: float = 1e-5,
-                 loss_mask: torch.Tensor | None = None) -> torch.Tensor:
+                 loss_mask: torch.Tensor | None = None, reduce=None) -> torch.Tensor:
     """DC_and_CE_loss (`compound_losses.py:9-47`): dice without background
-    plus CE, one log-softmax feeding both terms as in the reference."""
+    plus CE, one log-softmax feeding both terms as in the reference. With
+    `reduce` (a sum over the ranks of a mesh) the dice sums and the CE mean
+    are global."""
     n_cls = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     probs = torch.exp(logp)
@@ -110,7 +134,10 @@ def dice_ce_loss(logits: torch.Tensor, target: torch.Tensor, *,
         intersect = (probs_fg * y_fg).sum(sp)
         sum_pred = probs_fg.sum(sp)
         sum_gt = y_fg.sum(sp)
-        ce = nll.mean()
+        ce = _mean(nll, reduce)
+    if reduce is not None and loss_mask is None:
+        intersect, sum_pred, sum_gt = _global(reduce, batch_dice, intersect, sum_pred, sum_gt)
+        batch_dice = False   # summed over the batch already
     dc = -_dice(intersect, sum_pred, sum_gt, batch_dice, smooth).mean()
     return weight_ce * ce + weight_dice * dc
 
@@ -122,16 +149,19 @@ def dice_topk_loss(logits: torch.Tensor, target: torch.Tensor, *,
             + topk_ce_loss(logits, target, k_percent=k_percent))
 
 
-def make_loss(name: str, *, batch_dice: bool = True):
+def make_loss(name: str, *, batch_dice: bool = True, reduce=None):
     """Loss of a trainer-variant family, name -> fn(logits, target):
     dice_ce (default) | dice_ce_nosmooth | ce | dice | topk10 | topk10_ls01
-    | dice_topk10."""
+    | dice_topk10. `reduce` (a sum over the ranks of a device mesh) makes the
+    first four global; the top-k losses have no such form (ValueError)."""
+    if reduce is not None and name.startswith(("topk", "dice_topk")):
+        raise ValueError(f"loss {name!r} does not run over a device mesh")
     table = {
-        "dice_ce": lambda o, t: dice_ce_loss(o, t, batch_dice=batch_dice),
+        "dice_ce": lambda o, t: dice_ce_loss(o, t, batch_dice=batch_dice, reduce=reduce),
         "dice_ce_nosmooth": lambda o, t: dice_ce_loss(o, t, batch_dice=batch_dice,
-                                                      smooth=0.0),
-        "ce": lambda o, t: softmax_ce_loss(o, t),
-        "dice": lambda o, t: soft_dice_loss(o, t, batch_dice=batch_dice),
+                                                      smooth=0.0, reduce=reduce),
+        "ce": lambda o, t: softmax_ce_loss(o, t, reduce=reduce),
+        "dice": lambda o, t: soft_dice_loss(o, t, batch_dice=batch_dice, reduce=reduce),
         "topk10": lambda o, t: topk_ce_loss(o, t, k_percent=10.0),
         "topk10_ls01": lambda o, t: topk_ce_loss(o, t, k_percent=10.0,
                                                  label_smoothing=0.1),
@@ -185,16 +215,19 @@ def deep_supervision_loss(outputs: Sequence[torch.Tensor], target: torch.Tensor,
     return total
 
 
-def pseudo_dice(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def pseudo_dice(logits: torch.Tensor, target: torch.Tensor, reduce=None) -> torch.Tensor:
     """Per-class hard dice on one head (`nnUNetTrainer.py:1040-1086`), (C-1,)
-    foreground classes; NaN where a class is neither present nor predicted."""
+    foreground classes; NaN where a class is neither present nor predicted.
+    `reduce` (a sum over the ranks of a mesh) makes the counts global."""
     n_cls = logits.shape[-1]
     p = _one_hot(torch.argmax(logits, dim=-1), n_cls)[..., 1:]
     y = _one_hot(target, n_cls)[..., 1:]
     axes = tuple(range(0, p.dim() - 1))
-    tp = (p * y).sum(axes)
-    fp = (p * (1 - y)).sum(axes)
-    fn = ((1 - p) * y).sum(axes)
+    counts = torch.stack([(p * y).sum(axes), (p * (1 - y)).sum(axes),
+                          ((1 - p) * y).sum(axes)])
+    if reduce is not None:
+        counts = reduce(counts)
+    tp, fp, fn = counts
     denom = 2 * tp + fp + fn
     return torch.where(denom > 0, 2 * tp / torch.clamp(denom, min=1e-8),
                        torch.full_like(denom, float("nan")))

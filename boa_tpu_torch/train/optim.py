@@ -26,8 +26,7 @@ import math
 import numpy as np
 import torch
 
-from boa_tpu_torch.weights.convert import (kernel_from_numpy, kernel_to_numpy,
-                                           param_leaves, tree_get, tree_set)
+from boa_tpu_torch.weights.convert import param_codecs, tree_get, tree_set
 
 
 def poly_lr(initial_lr: float, step, max_steps: int, exponent: float = 0.9) -> float:
@@ -87,6 +86,10 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 _ADAM_KEYS = (("m", "exp_avg"), ("v", "exp_avg_sq"), ("vmax", "max_exp_avg_sq"))
+# torch's state key -> its key in the reference's tree (None: SGD's momentum,
+# which is the parameters' tree itself)
+STATE_TREE_KEYS = {"momentum_buffer": None, "step": "step",
+                   **{name: key for key, name in _ADAM_KEYS}}
 
 
 def _is_sgd(optimizer) -> bool:
@@ -100,23 +103,23 @@ def _amsgrad(optimizer) -> bool:
 def opt_state_to_numpy(model, optimizer: torch.optim.Optimizer):
     """The optimizer's state as the reference's tree: SGD's momentum tree,
     or ``{"m", "v", "step"[, "vmax"]}`` for the Adam family."""
-    leaves = param_leaves(model)
+    leaves = param_codecs(model)
     if _is_sgd(optimizer):
         tree: dict = {}
-        for path, p in leaves:
+        for path, p, to_np, _ in leaves:
             buf = optimizer.state.get(p, {}).get("momentum_buffer")
-            tree_set(tree, path, kernel_to_numpy(buf) if buf is not None
-                     else np.zeros(kernel_to_numpy(p).shape, np.float32))
+            tree_set(tree, path, to_np(buf) if buf is not None
+                     else np.zeros(to_np(p).shape, np.float32))
         return tree
     out: dict = {k: {} for k, _ in _ADAM_KEYS if k != "vmax" or _amsgrad(optimizer)}
     step = 0
-    for path, p in leaves:
+    for path, p, to_np, _ in leaves:
         st = optimizer.state.get(p, {})
         step = int(st["step"]) if "step" in st else step
         for key, name in _ADAM_KEYS:
             if key in out:
-                tree_set(out[key], path, kernel_to_numpy(st[name]) if name in st
-                         else np.zeros(kernel_to_numpy(p).shape, np.float32))
+                tree_set(out[key], path, to_np(st[name]) if name in st
+                         else np.zeros(to_np(p).shape, np.float32))
     out["step"] = np.asarray(step, np.int32)
     return out
 
@@ -126,17 +129,17 @@ def opt_state_from_numpy(model, optimizer: torch.optim.Optimizer, tree) -> None:
     """Load the reference's optimizer tree into torch's state. A step count of
     0 leaves the Adam state empty (torch creates it at the first step)."""
     if _is_sgd(optimizer):
-        for path, p in param_leaves(model):
-            optimizer.state[p]["momentum_buffer"] = kernel_from_numpy(tree_get(tree, path), p)
+        for path, p, _, from_np in param_codecs(model):
+            optimizer.state[p]["momentum_buffer"] = from_np(tree_get(tree, path), p)
         return
     step = int(np.asarray(tree["step"]))
     if step == 0:
         return
-    for path, p in param_leaves(model):
+    for path, p, _, from_np in param_codecs(model):
         st = optimizer.state[p]
         st["step"] = torch.tensor(float(step))
         for key, name in _ADAM_KEYS:
             if key in tree:
-                st[name] = kernel_from_numpy(tree_get(tree[key], path), p)
+                st[name] = from_np(tree_get(tree[key], path), p)
         if _amsgrad(optimizer) and "vmax" not in tree:
             st["max_exp_avg_sq"] = torch.zeros_like(p)

@@ -1,20 +1,33 @@
 """Training entry point, on the card by default.
 
 Counterpart of `boa_tpu/train/run_training.py` (nnU-Net's `nnUNetv2_train`,
-`run/run_training.py:137-190`), on one device: `build_trainer` derives the
-network from the patch and the class count, `run_training` runs the folds
+`run/run_training.py:137-190`): `build_trainer` derives the network from
+the patch and the class count (or a Primus trainer's ViT), on one device or
+over a dp x sp x tp mesh of ranks, and `run_training` runs the folds
 (splits_final.json), `--pretrained_weights`, `--tr` trainer variants,
 cascade stages and the final validation
 (`perform_actual_validation`, nnUNetTrainer.py:1212, on the port's sliding
 window: bf16, the K1-K3 composite at qualifying geometries), and writes
 `export_meta.json` for `weights.manager export`. Batches come from the
 prefetching loader through pinned memory and are augmented on the device.
-The reference's mesh (`--dp/--sp/--tp`) waits for the port's multi-device
-slice (ROADMAP M12) and raises here.
+With `--dp/--sp/--tp`, `main` starts dp * sp * tp ranks (one a card, NCCL;
+gloo with `-d cpu`) and waits for them at most `--timeout` seconds. Each
+rank loads and augments only its dp rows of every global batch (the draws
+of the whole batch, so the run is the one-process run) and trains on its sp
+slab of them and its shard of the network (`parallel/spmd.py`); rank 0
+writes the files.
+
+A Primus trainer name trains through `build_trainer` and
+`Trainer.train_epoch` with its checkpoints, as in the reference, whose
+`run_training` cannot take one: it writes `export_meta.json` from
+`arch.features_per_stage`, which a `PrimusConfig` lacks, and validates with
+the U-Net sliding window (ROADMAP Queue 3). `run_training` raises
+ValueError for one before any work.
 
 Usage:
     python -m boa_tpu_torch.train.run_training CASES_DIR OUT_DIR \
-        --patch 128 128 128 --batch 2 --epochs 1000 [--resume] [-d cpu]
+        --patch 128 128 128 --batch 2 --epochs 1000 [--resume] [-d cpu] \
+        [--dp 2 --sp 1 --tp 1 [--timeout SECONDS]]
 """
 
 from __future__ import annotations
@@ -39,18 +52,19 @@ def build_trainer(out_dir: Path, patch, num_classes: int,
                   iters: int = 250, mesh_shape=None, compute_dtype: str = "bfloat16",
                   trainer_name: str | None = None, batch_size: int = 2,
                   in_channels: int = 1, device="gpu", seed: int = 0):
-    """(Trainer, None, variant spec) for the network of `patch` and
+    """(Trainer, mesh or None, variant spec) for the network of `patch` and
     `num_classes`: pooling per axis while the axis allows, a singleton z
-    axis (the 2d configuration) never pooled or convolved through-plane.
-    `device` takes `run_training`'s names ("gpu", "gpu:N", "cpu")."""
+    axis (the 2d configuration) never pooled or convolved through-plane; a
+    Primus trainer name builds its ViT and recipe instead
+    (`primus_train_config`). `mesh_shape` (dp, sp, tp) shards the trainer
+    over the process group's ranks (`parallel/mesh.py:
+    initialize_distributed` first). `device` takes `run_training`'s names
+    ("gpu", "gpu:N", "cpu")."""
     from boa_tpu_torch.models.unet import ArchConfig
     from boa_tpu_torch.train.trainer import TrainConfig, Trainer
-    from boa_tpu_torch.train.variants import VariantSpec, apply_variant
+    from boa_tpu_torch.train.variants import (VariantSpec, apply_variant, get_variant,
+                                              primus_train_config)
 
-    if mesh_shape is not None:
-        raise NotImplementedError(
-            "a device mesh (--dp/--sp/--tp) is not in the port yet: it comes "
-            "with the multi-device slice (ROADMAP Queue 1, M12)")
     depths = [int(np.log2(p)) for p in patch]
     n = min(len(features), max(depths) + 1)
     two_d = patch[2] == 1
@@ -66,12 +80,23 @@ def build_trainer(out_dir: Path, patch, num_classes: int,
     cfg = TrainConfig(arch=arch, num_epochs=epochs, iters_per_epoch=iters,
                       compute_dtype=compute_dtype)
     spec = VariantSpec()
-    if trainer_name:
-        # the variant's recipe; the caller's epochs and iterations keep the loop
+    if trainer_name and get_variant(trainer_name).primus is not None:
+        # the whole network family changes: the ViT and the AbstractPrimus recipe
+        cfg, spec = primus_train_config(trainer_name, num_classes,
+                                        input_channels=in_channels, num_epochs=epochs,
+                                        iters_per_epoch=iters, batch_size=batch_size,
+                                        compute_dtype=compute_dtype)
+    elif trainer_name:
         cfg, spec = apply_variant(cfg, trainer_name, batch_size=batch_size)
-        cfg = dataclasses.replace(cfg, num_epochs=epochs, iters_per_epoch=iters)
-    trainer = Trainer(cfg, out_dir, seed=seed, device=named_device(device))
-    return trainer, None, spec
+    # the caller's epochs and iterations keep the loop
+    cfg = dataclasses.replace(cfg, num_epochs=epochs, iters_per_epoch=iters)
+    mesh = None
+    if mesh_shape is not None:
+        from boa_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(int(np.prod(mesh_shape)), ("dp", "sp", "tp"), tuple(mesh_shape))
+    trainer = Trainer(cfg, out_dir, seed=seed, device=named_device(device), mesh=mesh)
+    return trainer, mesh, spec
 
 
 def _num_classes(store) -> int:
@@ -107,7 +132,14 @@ def run_training(cases_dir: str | Path, out_dir: str | Path,
     from boa_tpu_torch.train.augment import augment_batch, augment_batch_cascade
     from boa_tpu_torch.train.dataloader import DataLoader, to_device
     from boa_tpu_torch.train.dataset import CaseStore, load_or_create_splits
+    from boa_tpu_torch.train.variants import get_variant
 
+    if trainer_name and get_variant(trainer_name).primus is not None:
+        raise ValueError(
+            f"{trainer_name!r} trains the Primus ViT, which run_training cannot "
+            "export or validate (no features_per_stage, no U-Net sliding window; "
+            "the reference fails alike): drive it with build_trainer and "
+            "Trainer.train_epoch")
     dev = named_device(device)
     t_setup = time.perf_counter()
     cases_dir, out_dir = Path(cases_dir), Path(out_dir)
@@ -143,25 +175,30 @@ def run_training(cases_dir: str | Path, out_dir: str | Path,
         mirror_axes = (0, 1)  # the 2d configuration mirrors in-plane only
     out_dir.mkdir(parents=True, exist_ok=True)
     arch = trainer.cfg.arch
-    (out_dir / "export_meta.json").write_text(json.dumps({
-        "patch_size": list(patch),
-        "num_classes": int(num_classes),
-        "features_per_stage": list(arch.features_per_stage),
-        "cases_dir": str(cases_dir.resolve()),
-    }))
+    if trainer.writer:
+        (out_dir / "export_meta.json").write_text(json.dumps({
+            "patch_size": list(patch),
+            "num_classes": int(num_classes),
+            "features_per_stage": list(arch.features_per_stage),
+            "cases_dir": str(cases_dir.resolve()),
+        }))
     ckpt = out_dir / "checkpoint_latest.pkl"
     if resume and ckpt.exists():
         trainer.load_checkpoint(ckpt)
         logger.info("Resumed from epoch %d", trainer.state.epoch)
     elif pretrained_weights is not None:
-        load_pretrained_weights(trainer.state.model, pretrained_weights, verbose=True)
+        trainer.load_pretrained_weights(pretrained_weights, verbose=True)
 
+    # on a mesh each dp rank loads and augments its rows of the global batch
+    part = None
+    if trainer.spmd is not None and trainer.spmd.dp > 1:
+        part = (trainer.spmd.d, trainer.spmd.dp)
     loader = DataLoader(
         store, patch, batch_size, seed=seed,
         case_ids=split["train"] if split else None,
         oversample_percent=trainer.cfg.oversample_foreground_percent,
         probabilistic_oversampling=spec.probabilistic_oversampling,
-        cascade=cascade, cascade_cc_dropout_p=0.2 if augment else 0.0)
+        cascade=cascade, cascade_cc_dropout_p=0.2 if augment else 0.0, part=part)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     aug_fn = augment_batch
@@ -174,14 +211,14 @@ def run_training(cases_dir: str | Path, out_dir: str | Path,
                 x, y, prev = to_device(batch, dev)
                 if augment:
                     yield augment_batch_cascade(gen, x, y, prev, fg_labels,
-                                                mirror_axes=tuple(mirror_axes))
+                                                mirror_axes=tuple(mirror_axes), part=part)
                 else:
                     onehot = torch.stack([(prev == lb) for lb in fg_labels],
                                          dim=-1).float()
                     yield torch.cat([x, onehot], dim=-1), y
             elif augment:
                 x, y = to_device(batch, dev)
-                yield aug_fn(gen, x, y, mirror_axes=tuple(mirror_axes))
+                yield aug_fn(gen, x, y, mirror_axes=tuple(mirror_axes), part=part)
             else:
                 yield to_device(batch, dev)
 
@@ -189,7 +226,7 @@ def run_training(cases_dir: str | Path, out_dir: str | Path,
     last: dict = {}
     setup_s = time.perf_counter() - t_setup
     while trainer.state.epoch < epochs:
-        last = trainer.train_epoch(gen_batches)
+        last = trainer.train_epoch(gen_batches, local_rows=part is not None)
         logger.info("epoch %d: loss=%.4f dice=%.4f ema=%.4f (%.1fs)", last["epoch"],
                     last["loss"], last["dice"], last["ema_dice"], last["epoch_time"])
     gen_batches.close()
@@ -198,9 +235,11 @@ def run_training(cases_dir: str | Path, out_dir: str | Path,
     last.update(setup_s=setup_s, final_checkpoint_s=time.perf_counter() - t0)
     if validate and split:
         t0 = time.perf_counter()
-        last["validation"] = perform_actual_validation(trainer, store, split["val"],
-                                                       out_dir, patch)
-        last["validation_s"] = time.perf_counter() - t0
+        model = trainer.serving_model()   # on a mesh every rank gathers
+        if trainer.writer:
+            last["validation"] = perform_actual_validation(trainer, store, split["val"],
+                                                           out_dir, patch, model)
+            last["validation_s"] = time.perf_counter() - t0
     return last
 
 
@@ -243,13 +282,16 @@ def load_pretrained_weights(model, fname: str | Path, verbose: bool = False) -> 
 
 
 @torch.no_grad()
-def perform_actual_validation(trainer, store, val_ids, out_dir: Path, patch) -> dict:
+def perform_actual_validation(trainer, store, val_ids, out_dir: Path, patch,
+                              model=None) -> dict:
     """Predict each validation case with the final weights and evaluate
     (`nnUNetTrainer.perform_actual_validation:1212`): the Gaussian sliding
     window at step 0.5 in the trainer's compute dtype on the stored
     (preprocessed) arrays, labels to `validation/{case}.nii.gz`, Dice/IoU
-    to `validation/summary.json`. The returned summary also holds the
-    seconds of the predictions and of the evaluation."""
+    to `validation/summary.json`. `model` is the trainer's whole network in
+    the compute dtype (default `trainer.serving_model()`). The returned
+    summary also holds the seconds of the predictions and of the
+    evaluation."""
     from boa_tpu_torch.engine.evaluation import evaluate_folder_arrays
     from boa_tpu_torch.inference.sliding_window import sliding_window_logits
     from boa_tpu_torch.io import nifti
@@ -259,7 +301,7 @@ def perform_actual_validation(trainer, store, val_ids, out_dir: Path, patch) -> 
     val_dir = Path(out_dir) / "validation"
     val_dir.mkdir(parents=True, exist_ok=True)
     cfg = trainer.cfg.arch
-    model = trainer.eval_model()
+    model = trainer.serving_model() if model is None else model
     dev = trainer.device
     gauss = pp.gaussian_importance_map(tuple(patch))
     refs, preds = {}, {}
@@ -317,6 +359,10 @@ def main(argv=None) -> None:
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--timeout", type=float, default=259200.0,
+                    help="with --dp/--sp/--tp: seconds to wait for the ranks, after "
+                         "which every rank is stopped and the run fails (default "
+                         "three days; a longer run passes more)")
     ap.add_argument("--no-augment", action="store_true")
     ap.add_argument("--no-mirroring", action="store_true",
                     help="disable mirror augmentation (the NoMirroring variants)")
@@ -329,16 +375,33 @@ def main(argv=None) -> None:
                     help="gpu (default: the card), gpu:N, or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    mesh_shape = None
-    if args.dp * args.sp * args.tp > 1:
-        mesh_shape = (args.dp, args.sp, args.tp)
-    run_training(args.cases_dir, args.out_dir, tuple(args.patch), args.batch,
-                 args.num_classes, args.epochs, args.iters, args.resume, mesh_shape,
-                 augment=not args.no_augment,
-                 mirror_axes=() if args.no_mirroring else None, fold=args.fold,
-                 validate=args.validate, pretrained_weights=args.pretrained_weights,
-                 trainer_name=args.trainer_name, cascade=args.cascade,
-                 device=args.device)
+    kw = dict(cases_dir=args.cases_dir, out_dir=args.out_dir, patch=tuple(args.patch),
+              batch_size=args.batch, num_classes=args.num_classes, epochs=args.epochs,
+              iters=args.iters, resume=args.resume, augment=not args.no_augment,
+              mirror_axes=() if args.no_mirroring else None, fold=args.fold,
+              validate=args.validate, pretrained_weights=args.pretrained_weights,
+              trainer_name=args.trainer_name, cascade=args.cascade, device=args.device)
+    world = args.dp * args.sp * args.tp
+    if world == 1:
+        run_training(**kw)
+        return
+    from boa_tpu_torch.parallel.mesh import spawn_ranks
+
+    dev = named_device(args.device)
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"--dp/--sp/--tp make {world} ranks, one a card, but "
+                         f"{torch.cuda.device_count()} cards are visible")
+    kw["mesh_shape"] = (args.dp, args.sp, args.tp)
+    spawn_ranks(_rank_training, world, (kw,), device=dev.type, timeout=args.timeout)
+
+
+def _rank_training(rank: int, kw: dict) -> None:
+    """One rank of `main`'s mesh: the rank's card (or the host), the run."""
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    dev = named_device(kw["device"])
+    run_training(**{**kw, "device": f"cuda:{torch.cuda.current_device()}"
+                    if dev.type == "cuda" else "cpu"})
 
 
 if __name__ == "__main__":

@@ -5,9 +5,8 @@ Counterpart of `boa_tpu/train/variants.py` (`VariantSpec`, `VARIANTS`,
 hyperparameter variants as trainer subclasses whose names are stored in
 checkpoints and model folders (`nnunetv2/training/nnUNetTrainer/variants/`);
 the model-folder predictor reads `mirror_axes` from here and the trainer
-(`run_training.py`) the rest. The Primus trainers need the Primus network,
-which the port does not have yet: `apply_variant` raises for them, and
-`primus_train_config` is not ported.
+(`run_training.py`) the rest. `primus_train_config` builds a Primus
+trainer's network (`models/primus.py`) and recipe.
 """
 
 from __future__ import annotations
@@ -148,11 +147,6 @@ def apply_variant(cfg, trainer_name: str, batch_size: int = 2):
     import dataclasses
 
     spec = get_variant(trainer_name)
-    if spec.primus is not None:
-        raise NotImplementedError(
-            f"{trainer_name!r} trains the Primus network, which the port does "
-            "not have yet: it comes with the slice that ports models/primus.py "
-            "and primus_train_config (ROADMAP Queue 1)")
     if spec.batch_norm:
         raise ValueError(
             "nnUNetTrainerBN (BatchNorm U-Net) is recognised for checkpoint "
@@ -178,3 +172,23 @@ def apply_variant(cfg, trainer_name: str, batch_size: int = 2):
     if not spec.deep_supervision and getattr(cfg.arch, "deep_supervision", False):
         kw["arch"] = dataclasses.replace(cfg.arch, deep_supervision=False)
     return replace(cfg, **kw), spec
+
+
+def primus_train_config(trainer_name: str, num_classes: int, input_channels: int = 1,
+                        num_epochs: int = 1000, iters_per_epoch: int = 250,
+                        batch_size: int = 2, compute_dtype: str = "bfloat16"):
+    """(TrainConfig, spec) of a Primus trainer name: the ViT of its size
+    (S/B/M/L, `models/primus.py:PRIMUS_VARIANTS`) under the AbstractPrimus
+    recipe; spec.batch_size (the BS8 trainers) overrides `batch_size` for
+    the oversampling percent."""
+    from boa_tpu_torch.models.primus import primus_config
+    from boa_tpu_torch.train.trainer import TrainConfig
+
+    spec = get_variant(trainer_name)
+    if spec.primus is None:
+        raise ValueError(f"{trainer_name!r} is not a Primus trainer")
+    arch = primus_config(spec.primus, num_classes=num_classes,
+                         input_channels=input_channels)
+    cfg = TrainConfig(arch=arch, num_epochs=num_epochs, iters_per_epoch=iters_per_epoch,
+                      compute_dtype=compute_dtype)
+    return apply_variant(cfg, trainer_name, batch_size=spec.batch_size or batch_size)

@@ -300,31 +300,44 @@ def tree_get(tree, path: tuple):
     return tree
 
 
-def params_to_numpy(model: PlainConvUNet) -> dict:
+def param_codecs(model) -> list[tuple]:
+    """(path, parameter, to numpy, from numpy) for every parameter of a
+    network of the port: `param_leaves` with `kernel_to_numpy` /
+    `kernel_from_numpy` for the U-Net families, the Primus module's own
+    (`models/primus.py:param_codecs`, whose dense and head kernels move
+    otherwise)."""
+    from boa_tpu_torch.models.primus import Primus, param_codecs as primus_codecs
+
+    if isinstance(model, Primus):
+        return primus_codecs(model)
+    return [(path, p, kernel_to_numpy, kernel_from_numpy) for path, p in param_leaves(model)]
+
+
+def params_to_numpy(model) -> dict:
     """The network's parameters as the reference's pytree of float32 numpy
     arrays: the inverse of `params_from_numpy`, so a checkpoint the port
     writes loads in the reference and back."""
     tree: dict = {}
-    for path, p in param_leaves(model):
-        tree_set(tree, path, kernel_to_numpy(p))
+    for path, p, to_np, _ in param_codecs(model):
+        tree_set(tree, path, to_np(p))
     return tree
 
 
 @torch.no_grad()
-def load_params_into(model: PlainConvUNet, params_np: dict) -> None:
+def load_params_into(model, params_np: dict) -> None:
     """Copy the reference's parameter pytree into the network in place. The
-    tree's leaves must be exactly the network's parameters (`param_leaves`),
+    tree's leaves must be exactly the network's parameters (`param_codecs`),
     else ValueError."""
-    leaves = param_leaves(model)
+    leaves = param_codecs(model)
     have: dict[str, np.ndarray] = {}
     _flatten(params_np, "", have)
-    want = {"/".join(map(str, path)) for path, _ in leaves}
+    want = {"/".join(map(str, path)) for path, *_ in leaves}
     if set(have) != want:
         raise ValueError(
             f"parameter tree does not fit the network: missing "
             f"{sorted(want - set(have))[:8]}, unexpected {sorted(set(have) - want)[:8]}")
-    for path, p in leaves:
-        p.copy_(kernel_from_numpy(have["/".join(map(str, path))], p))
+    for path, p, _, from_np in leaves:
+        p.copy_(from_np(have["/".join(map(str, path))], p))
 
 
 def params_from_numpy(params_np: dict, cfg: ArchConfig, device=None) -> PlainConvUNet:

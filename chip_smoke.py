@@ -265,23 +265,48 @@ Builds the CUDA kernels from boa_tpu_torch/csrc (nvcc, sm_90a), then:
               1e-4; (b) `manager import` of a .pth folder, `list`,
               `create-synthetic`, `download` and the sharing zips from a
               localhost server, each model as the .pth loaded directly
+18. primus  - the Primus ViT and the training benchmark: (a) Primus-M at its
+              published widths (embed 864, depth 16, 12 heads, patch 8) from
+              `build_trainer(trainer_name="nnUNet_Primus_M_Trainer")`, 128^3,
+              batch 2, 118 classes, bf16 on float32 masters, AdamW: 5 steps
+              on one batch (the loss falls), seconds per step (CUDA events),
+              the peak, a bf16 step within 2e-2 / 5e-2 (loss / grad norm) of
+              a float32 step from one state, no K1-K5 launch; (b) a small
+              Primus float32 step card against CPU within 1e-4; (c) `python
+              -m boa_tpu_torch.engine.benchmark --flagship` as a subprocess:
+              its JSON line and benchmark_result.json
+19. mesh    - multi-device on torch.distributed: (a) the dry run's rank
+              (what `python -m boa_tpu_torch.parallel.dryrun --n 1` spawns)
+              on an NCCL group of one in this process; (b) two
+              gloo ranks on the one card run `sliding_window_seg_sharded_
+              chunked` with the full-width total_fast net on a 224x192x160
+              grid (12 tiles, 6 a rank): labels > 0.99 against the one-process
+              `sliding_window_seg_chunked` (K1-K3's sums are atomic), each
+              rank's launches its tiles x (4, 1, 1) (`launches_mesh`, their
+              sum); (c) two gloo ranks take one float32 dp step of the dry
+              run's flagship net: loss within 1e-4 relative of the
+              one-process step, parameters within 1e-5. gloo reduces CUDA
+              tensors but NCCL cannot put two ranks on one card, so sp and tp
+              run here at world size 1 only (their 2- and 4-rank checks are
+              the CPU tests); the phase prints which check ran at which size
 
 The device phase also says whether pandas, matplotlib, cv2, PIL and sklearn
 import on the card machine. With --profile, the fused, study and total phases
 each add one more run under torch.profiler (device busy share, kernels by
 device time), and the measure phase one more run of (b) on the card. With
 --phases=a,b (of kernels, forward, fused, study, total, measure, bca, cli,
-dicom, render, api, engine, tools, serve, pacs, train) only those phases run after
-the device phase, and the kernel summary line is left out. Each phase prints one
-JSON line (the total, measure, bca, cli, dicom, render, api, engine, tools, serve
-and train phases one per part).
+dicom, render, api, engine, tools, serve, pacs, train, primus, mesh) only those
+phases run after the device phase, and the kernel summary line is left out. Each
+phase prints one JSON line (the total, measure, bca, cli, dicom, render, api,
+engine, tools, serve, train, primus and mesh phases one per part).
 Then come the kernel summary line {"kernels": [...]} (K1-K3's `launches` are
 the fast study's, `launches_total` the full total study's, `launches_bca` the
 BCA study's, `launches_cli` the CLI study's, `launches_api` the API call's
 of api (a), `launches_engine` engine (a)'s predict, `launches_tools` the
 tools' commands of tools (b), `launches_serve` the stream of serve (a),
 `launches_pacs` the PACS worker's series (A), `launches_train` the train
-phase's `run_training`; K5's row has the last seven too)
+phase's `run_training`, `launches_mesh` the mesh phase's two ranks of (b);
+K5's row has the last eight too)
 and, last,
 {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero without that last line; it also
@@ -305,7 +330,8 @@ import time
 import numpy as np
 
 ALL_PHASES = ("kernels", "forward", "fused", "study", "total", "measure", "bca", "cli",
-              "dicom", "render", "api", "engine", "tools", "serve", "pacs", "train")
+              "dicom", "render", "api", "engine", "tools", "serve", "pacs", "train", "primus",
+              "mesh")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 TOTAL_FAST_FEATURES = (32, 64, 128, 256, 320, 320)
@@ -1888,6 +1914,7 @@ def phase_cli(torch, rc, pc) -> dict:
     warm-up with seconds, analyze_ct's stats, spans, peak memory and
     launches tiles x folds x (4, 1, 1), no K5, no model loaded again."""
     import json
+    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from boa_tpu_torch import cli, commands
@@ -1924,15 +1951,21 @@ def phase_cli(torch, rc, pc) -> dict:
         _bca_store(tmp / "w", SMALL_RUN_FEATURES, patch)
         nifti.save(_bench_ct(SMALL_RUN_SHAPE, (1.5, 1.5, 3.0)), tmp / "ct.nii.gz")
         args = ["-i", str(tmp / "ct.nii.gz"), "-m", "total+bca", "--fast-bca", "--bca-no-pdf"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "boa_tpu_torch", *args, "-o", str(tmp / "gpu"),
-             "--device", "cuda"], cwd=repo, capture_output=True, text=True, timeout=600,
-            env=_cli_env(BOA_WEIGHTS_PATH=str(tmp / "w"), BOA_TPU_CONFIG_DIR=str(tmp / "cfg")))
-        sub_s = time.perf_counter() - t0
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        counter = json.loads((tmp / "cfg" / "config.json").read_text())["prediction_counter"]
-        # the same run in this process on the CPU, counting predict_image's calls
+        env = _cli_env(BOA_WEIGHTS_PATH=str(tmp / "w"), BOA_TPU_CONFIG_DIR=str(tmp / "cfg"))
+
+        def command():
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "boa_tpu_torch", *args, "-o", str(tmp / "gpu"),
+                 "--device", "cuda"], cwd=repo, capture_output=True, text=True, timeout=600,
+                env=env)
+            return proc, time.perf_counter() - t0
+
+        # the command on the card in a subprocess (its own config folder), and
+        # beside it the same run in this process on the CPU, counting
+        # predict_image's calls
+        ex = ThreadPoolExecutor(1)
+        card_run = ex.submit(command)
         calls = []
 
         def counted(fn):
@@ -1956,6 +1989,10 @@ def phase_cli(torch, rc, pc) -> dict:
                 m.predict_image = fn
             os.environ.clear()
             os.environ.update(env_before)
+            ex.shutdown()
+        proc, sub_s = card_run.result()
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        counter = json.loads((tmp / "cfg" / "config.json").read_text())["prediction_counter"]
         cpu_counter = json.loads((tmp / "cfg_cpu" / "config.json").read_text())[
             "prediction_counter"]
         gpu, cpu = files_of(tmp / "gpu"), files_of(tmp / "cpu")
@@ -2886,16 +2923,19 @@ def phase_engine(torch, rc, pc) -> dict:
     --save_probabilities`: the folds converted (and cached as .npz), the
     cached load, the predict with its launches (K1/K2/K3 = (4, 1, 1) per
     network forward, 4 tiles x 2 folds forwards of the 8 flips as one
-    batch: 64 network evaluations), the labels an argmax of the .npz; the
-    folder without probabilities twice in this process, then imported into
-    a store (the same parameters, bit for bit) and `-d` run as a
-    subprocess: labels within 1e-4 of the folder's (two runs of one model
+    batch: 64 network evaluations), the labels an argmax of the .npz (read
+    on a host thread while (b) and (c) run); the
+    folder without probabilities twice in this process, and beside them (on
+    a thread) imported into a store (the same parameters, bit for bit) and
+    `-d` run as a subprocess: labels within 1e-4 of the folder's (two runs of one model
     differ where the kernels' atomic sums round apart); the kernel
     composite against the plain composite on one tile. (b) nnU-Net's ResEnc M layout at full width on one 128^3 case and
     (c) an 8-stage 2d net (32->512, 512x512 patch, 0.8 mm) on a
     512x512x24 slice stack, both one fold without TTA, eager in bf16:
     labels against a float32 Predictor on the card > 0.99, seconds, peak
-    memory and the forward's ms."""
+    memory and the forward's ms; their folders, cases and .npz caches are
+    written on a host thread while (a) runs; each runs alone, after (a)'s
+    plain composite runs, with the counts and the peak zeroed before it."""
     from boa_tpu_torch.engine import predict as ep
     from boa_tpu_torch.inference.predictor import _normalize
     from boa_tpu_torch.inference.sliding_window import mirror_combos
@@ -2907,10 +2947,29 @@ def phase_engine(torch, rc, pc) -> dict:
     from boa_tpu_torch.weights.store import ModelStore, import_torch_model_folder
     from pathlib import Path
 
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.perf_counter()
     tmp_dir = tempfile.TemporaryDirectory()
     root = Path(tmp_dir.name)
     res: dict = {}
+    pool = ThreadPoolExecutor(3)
+
+    def eager_folder(task_id, features, patch, spacing, case, seed, blocks=None):
+        # (b) and (c)'s folder, case and .npz cache, written on the host while
+        # (a) runs on the card
+        plans_d, dataset, conf = _engine_plans(features, patch, spacing, blocks)
+        mdir, _ = _engine_folder(root / "results", task_id, plans_d, dataset, conf, 1, seed)
+        _engine_case(root / f"cases_{task_id}", case, spacing + (3.0,) * (3 - len(spacing)))
+        ep.load_model_folder(mdir, [0], configuration=conf)
+        return mdir, conf
+
+    eager = pool.submit(lambda: (
+        eager_folder(298, RESENC_M["features"], (128, 128, 128), (1.5, 1.5, 1.5),
+                     (128, 128, 128), 10, RESENC_M["blocks"]),
+        eager_folder(299, TWO_D["features"], TWO_D["patch"], TWO_D["spacing"],
+                     TWO_D["case"], 20)))
 
     # ---- (a) total_fast's network from .pth, two folds, mirror TTA, K1-K3
     t0 = time.perf_counter()
@@ -2921,8 +2980,38 @@ def phase_engine(torch, rc, pc) -> dict:
     img = _engine_case(case_dir, ENGINE_CASE, (3.0, 3.0, 3.0))
     write_s = time.perf_counter() - t0
     pth_mb = sum(p.stat().st_size for p in mdir.glob("fold_*/*.pth")) / 2 ** 20
+
+    converted = threading.Event()
+
+    def store_and_command():
+        # the folder into a store and `-d` as the command line, in a
+        # subprocess, beside this process's runs on the card; then the
+        # store's folds against the folder's cache, bit for bit
+        t0 = time.perf_counter()
+        import_torch_model_folder(mdir, root / "store")
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "boa_tpu_torch.engine.predict", "-i", str(case_dir),
+               "-o", str(root / "preds_d"), "-d", "297", "-f", "0", "1", "-step_size", "0.5"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           env=_cli_env(BOA_WEIGHTS_PATH=str(root / "store")))
+        cmd_s = time.perf_counter() - t0
+        converted.wait()
+        store_dir = root / "store" / mdir.parent.name / mdir.name
+        same = all(
+            np.array_equal(a, b) and a.dtype == b.dtype for f in (0, 1) for a, b in zip(
+                _leaves(cv.load_params_npz(mdir / f"fold_{f}" / "checkpoint_final.npz")),
+                _leaves(cv.load_params_npz(store_dir / f"fold_{f}" / "checkpoint_final.npz")),
+                strict=True))
+        return import_s, cmd_s, r, same
+
+    command = pool.submit(store_and_command)
     t0 = time.perf_counter()
-    ep.load_model_folder(mdir, [0, 1])                 # .pth -> pytree, .npz cached
+    try:
+        ep.load_model_folder(mdir, [0, 1])             # .pth -> pytree, .npz cached
+    finally:
+        converted.set()
     convert_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, folds = ep.load_model_folder(mdir, [0, 1])      # the cached .npz
@@ -2949,15 +3038,30 @@ def phase_engine(torch, rc, pc) -> dict:
         for cin in (32, 64, 32)))
     seg_f = root / "preds" / "case.nii.gz"
     seg = np.asarray(nifti.load(seg_f).data)
-    t0 = time.perf_counter()
-    probs = np.load(root / "preds" / "case.npz")["probabilities"]
-    npz_read_s = time.perf_counter() - t0
-    am = np.argmax(probs, 0)
-    diff = am != seg
-    at_label = np.take_along_axis(probs, seg[None].astype(np.int64), 0)[0]
-    ties = int(diff.sum())
-    ties_ok = bool(np.array_equal(at_label[diff], probs.max(0)[diff]))
-    del probs, am, at_label
+
+    def probabilities_check():
+        # the read on the host beside the runs below; the argmax on the card
+        t0 = time.perf_counter()
+        probs = np.load(root / "preds" / "case.npz")["probabilities"]
+        read_s = time.perf_counter() - t0
+        p = torch.from_numpy(probs).cuda()
+        label = torch.from_numpy(seg.astype(np.int64)).cuda()
+        diff = p.argmax(0) != label
+        at_label = p.gather(0, label[None])[0]
+        return read_s, int(diff.sum()), bool(torch.equal(at_label[diff], p.amax(0)[diff]))
+
+    checked = pool.submit(probabilities_check)
+
+    # the same folder without probabilities (the fused path), twice in this
+    # process; the store and `-d` as the command line run on their thread
+    labels = {}
+    for run in ("m1", "m2"):
+        t0 = time.perf_counter()
+        ep.predict_folder(case_dir, root / f"preds_{run}", model_dir=mdir, folds=[0, 1],
+                          step_size=0.5)
+        labels[run] = (time.perf_counter() - t0, root / f"preds_{run}" / "case.nii.gz")
+
+    npz_read_s, ties, ties_ok = checked.result()
     res["pth"] = {
         "case": list(ENGINE_CASE), "pth_mib": pth_mb, "write_s": write_s,
         "convert_s": convert_s, "npz_load_s": npz_load_s, "predict_s": predict_s,
@@ -2965,41 +3069,18 @@ def phase_engine(torch, rc, pc) -> dict:
         "samples": sum(calls), "launches": launches,
         "npz_read_s": npz_read_s, "argmax_ties_float16": ties,
         "classes_present": int(np.unique(seg).size)}
-    emit({"phase": "engine", "part": "pth", **res["pth"]})
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "pth", **res["pth"]})
     assert seg.shape == ENGINE_CASE and sum(calls) == ENGINE_TILES * 2 * ENGINE_MIRRORS, calls
     assert fwd == ENGINE_TILES * 2 and launches == want, (launches, want)
     # the labels are an argmax of the .npz: where np.argmax differs, the
     # label's float16 probability ties the maximum
     assert ties_ok, ties
 
-    # the same folder without probabilities (the fused path), twice in this
-    # process; then into a store and `-d` as the command line, in a subprocess
-    labels = {}
-    for run in ("m1", "m2"):
-        t0 = time.perf_counter()
-        ep.predict_folder(case_dir, root / f"preds_{run}", model_dir=mdir, folds=[0, 1],
-                          step_size=0.5)
-        labels[run] = (time.perf_counter() - t0, root / f"preds_{run}" / "case.nii.gz")
-    t0 = time.perf_counter()
-    import_torch_model_folder(mdir, root / "store")
-    import_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "boa_tpu_torch.engine.predict", "-i", str(case_dir),
-           "-o", str(root / "preds_d"), "-d", "297", "-f", "0", "1", "-step_size", "0.5"]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                       cwd=os.path.dirname(os.path.abspath(__file__)),
-                       env=_cli_env(BOA_WEIGHTS_PATH=str(root / "store")))
-    cmd_s = time.perf_counter() - t0
+    import_s, cmd_s, r, same_params = command.result()
     assert r.returncode == 0, r.stderr[-3000:]
     m1, m2, d = (np.asarray(nifti.load(f).data) for f in
                  (labels["m1"][1], labels["m2"][1], root / "preds_d" / "case.nii.gz"))
-    # the store's folds are the folder's, bit for bit
-    store_dir = root / "store" / mdir.parent.name / mdir.name
-    same_params = all(
-        np.array_equal(a, b) and a.dtype == b.dtype for f in (0, 1) for a, b in zip(
-            _leaves(cv.load_params_npz(mdir / f"fold_{f}" / "checkpoint_final.npz")),
-            _leaves(cv.load_params_npz(store_dir / f"fold_{f}" / "checkpoint_final.npz")),
-            strict=True))
     res["store"] = {
         "import_s": import_s, "command_s": cmd_s, "fused_predict_s": labels["m1"][0],
         "fused_predict_again_s": labels["m2"][0],
@@ -3008,7 +3089,8 @@ def phase_engine(torch, rc, pc) -> dict:
         "voxels_d_vs_m": int((d != m1).sum()), "voxels_m_vs_m_again": int((m2 != m1).sum()),
         "voxels_probs_path_vs_fused": int((seg != m1).sum()),
         "store_params_bit_identical": same_params}
-    emit({"phase": "engine", "part": "store", **res["store"]})
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "store", **res["store"]})
     # K1's and K2's instance-norm sums are atomicAdds, so two runs of one
     # model on the card round differently at a few voxels (50-158 of 6.9 M
     # on an H100 80GB HBM3, 2.3e-5 at most): `-d` is held to the folder
@@ -3020,16 +3102,29 @@ def phase_engine(torch, rc, pc) -> dict:
     # `-m` and `-d` once more in this process with the network on the plain
     # composite: the same code path but for the sums' order, so equal bytes
     # here put the differences above on the kernels' atomic sums
+    # (-m here, -d beside it on a thread); then (b) nnU-Net's ResEnc M at
+    # full width and (c) an 8-stage 2d net on a slice stack, one fold each,
+    # eager, each alone (their folders written beside (a))
     plain_s = {}
+
+    def plain_predict(run, kw):
+        t0 = time.perf_counter()
+        ep.predict_folder(case_dir, root / f"preds_{run}", folds=[0, 1], step_size=0.5, **kw)
+        plain_s[run] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    (resenc_dir, resenc_conf), (two_d_dir, two_d_conf) = eager.result()
+    prepare_wait_s = time.perf_counter() - t0
+    pool.shutdown()
+    pool = ThreadPoolExecutor(1)
     rc.reset_launches()
     pc.reset_launches()
     with _plain_composite(rc):
-        for run, kw in (("pm", {"model_dir": mdir}),
-                        ("pd", {"task_id": 297, "store": ModelStore(root / "store")})):
-            t0 = time.perf_counter()
-            ep.predict_folder(case_dir, root / f"preds_{run}", folds=[0, 1],
-                              step_size=0.5, **kw)
-            plain_s[run] = time.perf_counter() - t0
+        beside = pool.submit(plain_predict, "pd",
+                             {"task_id": 297, "store": ModelStore(root / "store")})
+        plain_predict("pm", {"model_dir": mdir})
+        beside.result()
+    pool.shutdown()
     plain_launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
     pm_f, pd_f = (root / f"preds_{run}" / "case.nii.gz" for run in ("pm", "pd"))
     pm = np.asarray(nifti.load(pm_f).data)
@@ -3037,10 +3132,21 @@ def phase_engine(torch, rc, pc) -> dict:
                     "launches": plain_launches,
                     "d_bytes_equal_m": pd_f.read_bytes() == pm_f.read_bytes(),
                     "voxels_plain_vs_kernels": int((pm != m1).sum())}
-    emit({"phase": "engine", "part": "plain", **res["plain"]})
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "plain", **res["plain"]})
     assert all(n == 0 for n in plain_launches.values()), plain_launches
     assert res["plain"]["d_bytes_equal_m"], res["plain"]
     assert (pm == m1).mean() > 0.99
+
+    # (b) and (c), each alone (`_eager_check` zeroes the counts and the peak)
+    res["resenc"] = _eager_check(torch, resenc_dir, resenc_conf, root / "cases_298",
+                                 root / "preds_resenc")
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "resenc", "prepare_wait_s": prepare_wait_s, **res["resenc"]})
+    res["two_d"] = _eager_check(torch, two_d_dir, two_d_conf, root / "cases_299",
+                                root / "preds_2d")
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "two_d", **res["two_d"]})
 
     # the kernel composite against the plain composite on the batch the path
     # sends: the case's first tile and its 7 flips (`_forward_tta`'s batch)
@@ -3072,30 +3178,14 @@ def phase_engine(torch, rc, pc) -> dict:
                    "max_rel_err": max(c["max_abs_err"] / c["logit_absmax"] for c in samples),
                    "kernels_repeat_bit_equal": kernels_again,
                    "plain_repeat_bit_equal": plain_again, "ms_batch_kernels": ms_kernels}
-    emit({"phase": "engine", "part": "tile", **res["tile"]})
+    emit({"phase": "engine", "at_s": time.perf_counter() - t_phase,
+          "part": "tile", **res["tile"]})
     del model, got, ref, xs, folds
     torch.cuda.empty_cache()
     assert res["tile"]["batch"] == ENGINE_MIRRORS and plain_again, res["tile"]
     if not all(c["finite"] and c["argmax_agree"] > 0.99
                and c["max_abs_err"] <= 2e-2 * c["logit_absmax"] for c in samples):
         raise AssertionError(f"engine tile composite {res['tile']}")
-
-    # ---- (b) ResEnc M at full width, eager
-    plans_d, dataset, conf = _engine_plans(RESENC_M["features"], (128, 128, 128),
-                                           (1.5, 1.5, 1.5), RESENC_M["blocks"])
-    mdir, _ = _engine_folder(root / "results", 298, plans_d, dataset, conf, 1, 10)
-    _engine_case(root / "cases_resenc", (128, 128, 128), (1.5, 1.5, 1.5))
-    res["resenc"] = _eager_check(torch, mdir, conf, root / "cases_resenc",
-                                 root / "preds_resenc")
-    emit({"phase": "engine", "part": "resenc", **res["resenc"]})
-
-    # ---- (c) 2d at full width on a slice stack, eager
-    plans_d, dataset, conf = _engine_plans(TWO_D["features"], TWO_D["patch"],
-                                           TWO_D["spacing"])
-    mdir, _ = _engine_folder(root / "results", 299, plans_d, dataset, conf, 1, 20)
-    _engine_case(root / "cases_2d", TWO_D["case"], TWO_D["spacing"] + (3.0,))
-    res["two_d"] = _eager_check(torch, mdir, conf, root / "cases_2d", root / "preds_2d")
-    emit({"phase": "engine", "part": "two_d", **res["two_d"]})
 
     tmp_dir.cleanup()
     res["phase_s"] = time.perf_counter() - t_phase
@@ -4393,6 +4483,483 @@ def phase_train(torch, rc, pc) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# primus: the Primus ViT and the training benchmark
+# ---------------------------------------------------------------------------
+
+PRIMUS_ITERS = 5                 # timed steps on one batch, after one warm-up step
+PRIMUS_SHAPE = (128, 128, 128)   # the trainers' patch
+
+
+def _primus_batch(n_classes: int, batch: int = 2, seed: int = 0):
+    """A batch of 16^3 blocks of random classes with the class in the CT."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, n_classes, (batch, 8, 8, 8))
+    for ax in (1, 2, 3):
+        y = y.repeat(PRIMUS_SHAPE[ax - 1] // 8, axis=ax)
+    x = (y[..., None] / n_classes + rng.normal(0, 0.1, y.shape + (1,))).astype(np.float32)
+    return x, y
+
+
+def _primus_small_card_vs_cpu(torch) -> dict:
+    """One float32 AdamW step of a small Primus on the card and on the CPU
+    from the same parameters and batch. The key bias's exact gradient is 0
+    (the softmax is invariant to a shift of every key), so its rounding noise
+    becomes +-lr in Adam's first step on either device: it is held to |step|
+    <= lr, every other parameter to 1e-4."""
+    from boa_tpu_torch.models.primus import PrimusConfig, init_primus, primus_params_from_numpy
+    from boa_tpu_torch.train.trainer import TrainConfig, init_opt_state, make_train_step
+    from boa_tpu_torch.weights.convert import _flatten, params_to_numpy
+
+    arch = PrimusConfig(embed_dim=64, depth=2, num_heads=4, patch_size=(8, 8, 8),
+                        num_classes=3)
+    cfg = TrainConfig(arch=arch, compute_dtype="float32", optimizer="adamw",
+                      adam_betas=(0.9, 0.98), weight_decay=5e-2, grad_clip=1.0)
+    tree = init_primus(17, arch, (4, 4, 4))
+    rng = np.random.default_rng(17)
+    y = rng.integers(0, 3, (2, 32, 32, 32)).astype(np.int64)
+    x = (y[..., None] + rng.normal(0, 0.5, (2, 32, 32, 32, 1))).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = primus_params_from_numpy(tree, arch, device=dev)
+        opt = init_opt_state(cfg, model)
+        m = make_train_step(cfg)(model, opt, torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).to(dev), 3e-4)
+        leaves: dict = {}
+        _flatten(params_to_numpy(model), "", leaves)
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]), leaves)
+    d = arch.embed_dim
+    err, key_bias = 0.0, 0.0
+    for k, want in out["cpu"][2].items():
+        got = out["cuda"][2][k]
+        if k.endswith("qkv_b"):
+            key_bias = max(key_bias, float(np.abs(got[d:2 * d]).max()))
+            got, want = np.delete(got, np.s_[d:2 * d]), np.delete(want, np.s_[d:2 * d])
+        err = max(err, float(np.abs(got - want).max()))
+    return {"loss": [out["cuda"][0], out["cpu"][0]],
+            "grad_norm": [out["cuda"][1], out["cpu"][1]], "params_max_abs_diff": err,
+            "key_bias_max_step": key_bias}
+
+
+def phase_primus(torch, rc, pc) -> dict:
+    """The Primus trainers and the training benchmark on the card. (a)
+    Primus-M at its published widths (embed 864, depth 16, 12 heads, patch
+    8: nnUNet_Primus_M_Trainer through `build_trainer`) at 128^3, batch 2,
+    118 classes, bf16 forward on float32 masters, AdamW at the recipe's lr
+    3e-4: one warm-up step and 5 timed steps on one batch (CUDA events, the
+    loop unsynced; the loss must fall), the peak, no K1-K5 launch (the ViT
+    runs plain matmuls, float32 softmax, matmul); then from the trained
+    state a bf16 step within 2e-2 (loss) and 5e-2 (grad norm) relative of a
+    float32 step. (b) A small Primus float32 step card against CPU within
+    1e-4. (c) `python -m boa_tpu_torch.engine.benchmark --flagship` as a
+    subprocess: its JSON line and benchmark_result.json (this card's name,
+    3 epochs of 20 steps)."""
+    from pathlib import Path
+
+    from boa_tpu_torch.train.run_training import build_trainer
+    from boa_tpu_torch.train.trainer import init_opt_state, make_train_step
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+    n_classes = 118
+
+    # ---- (a) Primus-M
+    t0 = time.perf_counter()
+    trainer = build_trainer(root / "primus_m", PRIMUS_SHAPE, n_classes, epochs=1,
+                            iters=PRIMUS_ITERS, trainer_name="nnUNet_Primus_M_Trainer",
+                            batch_size=2, device="gpu")[0]
+    build_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    x, y = (torch.from_numpy(a).cuda() for a in _primus_batch(n_classes))
+    model, opt = trainer.state.model, trainer.state.optimizer
+    params_m = sum(p.numel() for p in model.parameters()) / 1e6
+    lr = cfg.initial_lr
+    rc.reset_launches()
+    pc.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = [trainer._step(model, opt, x, y, lr)]
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(PRIMUS_ITERS + 1)]
+    marks[0].record()
+    for i in range(PRIMUS_ITERS):
+        metrics.append(trainer._step(model, opt, x, y, lr))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    iter_s = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(rc.LAUNCHES, **pc.LAUNCHES)
+    losses = [float(m["loss"]) for m in metrics]
+    # bf16 against float32 at one state (the trained one), each step on a
+    # copy of the network and of AdamW's state
+    def snapshot():
+        import copy
+
+        m = copy.deepcopy(model)
+        o = init_opt_state(cfg, m)
+        o.load_state_dict(opt.state_dict())
+        return m, o
+
+    m_b, o_b = snapshot()
+    sb = make_train_step(cfg)(m_b, o_b, x, y, lr)
+    same = {"loss": [float(sb["loss"])], "grad_norm": [float(sb["grad_norm"])]}
+    del m_b, o_b, sb
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m_f, o_f = snapshot()
+    sf = make_train_step(dataclasses.replace(cfg, compute_dtype="float32"))(m_f, o_f, x, y, lr)
+    same["loss"].append(float(sf["loss"]))
+    same["grad_norm"].append(float(sf["grad_norm"]))
+    peak_fp32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    del m_f, o_f, sf, trainer, model, opt
+    torch.cuda.empty_cache()
+    a = cfg.arch
+    res["m"] = {"trainer": "nnUNet_Primus_M_Trainer", "embed_dim": a.embed_dim,
+                "depth": a.depth, "heads": a.num_heads, "patch": list(a.patch_size),
+                "tokens": int(np.prod([s // p for s, p in zip(PRIMUS_SHAPE, a.patch_size)])),
+                "shape": list(PRIMUS_SHAPE), "batch": 2, "classes": n_classes,
+                "params_m": params_m,
+                "optimizer": cfg.optimizer, "lr": lr, "build_s": build_s,
+                "warmup_step_s": warmup_s, "sec_per_iter": iter_s,
+                "sec_per_iter_median": statistics.median(iter_s), "peak_gib": peak,
+                "peak_fp32_step_gib": peak_fp32, "losses": losses, "launches": launches,
+                "bf16_vs_fp32": same}
+    emit({"phase": "primus", "part": "m", **res["m"]})
+    assert all(np.isfinite(losses)) and losses[-1] < losses[1], losses
+    assert all(n == 0 for n in launches.values()), launches
+    assert abs(same["loss"][0] - same["loss"][1]) <= 2e-2 * abs(same["loss"][1]), same
+    assert abs(same["grad_norm"][0] - same["grad_norm"][1]) <= 5e-2 * abs(
+        same["grad_norm"][1]), same
+
+    # ---- (b) a small step, card against CPU
+    t0 = time.perf_counter()
+    small = _primus_small_card_vs_cpu(torch)
+    small["part_s"] = time.perf_counter() - t0
+    res["small"] = small
+    emit({"phase": "primus", "part": "small_card_vs_cpu", **small})
+    assert abs(small["loss"][0] - small["loss"][1]) <= 1e-4 * abs(small["loss"][1]), small
+    assert abs(small["grad_norm"][0] - small["grad_norm"][1]) <= 1e-4 * abs(
+        small["grad_norm"][1]), small
+    assert small["params_max_abs_diff"] <= 1e-4, small
+    assert small["key_bias_max_step"] <= 3e-4 * (1 + 1e-5), small
+
+    # ---- (c) the training benchmark as its command
+    t0 = time.perf_counter()
+    out = root / "benchmark"
+    r = subprocess.run([sys.executable, "-m", "boa_tpu_torch.engine.benchmark", "--flagship",
+                        "-o", str(out)], capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)), env=_cli_env())
+    cmd_s = time.perf_counter() - t0
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.splitlines()[0])
+    blob = json.loads((out / "benchmark_result.json").read_text())
+    res["benchmark"] = {"command_s": cmd_s, "line": line, "result": blob}
+    emit({"phase": "primus", "part": "benchmark", **res["benchmark"]})
+    assert blob["device"] == torch.cuda.get_device_name(0) == line["device"], blob
+    assert len(blob["epoch_times_s"]) == 3 and blob["iters_per_epoch"] == 20, blob
+    assert blob["patch_size"] == [128, 128, 128] and blob["it_per_s"] > 0, blob
+    assert blob["torch_version"] == torch.__version__, blob
+    tmp_dir.cleanup()
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "primus", "part": "done", "phase_s": res["phase_s"]})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# mesh: multi-device training and inference on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_GRID = (224, 192, 160)   # the fast study's 3 mm grid (224x192x300), z cut to 160
+
+
+def _mesh_volume() -> np.ndarray:
+    """A normalized (1, 224, 192, 160) volume: 8^3 blocks of unit-normal
+    intensity, plus noise, from seed 11."""
+    rng = np.random.default_rng(11)
+    v = rng.normal(size=[s // 8 for s in MESH_GRID])
+    for ax in range(3):
+        v = v.repeat(8, axis=ax)
+    return (v + 0.1 * rng.normal(size=MESH_GRID))[None].astype(np.float32)
+
+
+def _mesh_rank(rank: int, vol: np.ndarray, out_dir: str, gate: str) -> dict:
+    """One of two gloo ranks on the card: once `gate` exists, (b) the sharded
+    sliding window, then (c) its half of the dp step; with the wall-clock
+    times it started, passed the gate and ended each."""
+    wall = [time.time()]
+    deadline = time.monotonic() + 900
+    while not os.path.exists(gate):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank {rank}: the mesh phase never opened {gate}")
+        time.sleep(0.05)
+    wall.append(time.time())
+    seg = _mesh_seg_rank(rank, vol)
+    wall.append(time.time())
+    dp = _mesh_dp_step(rank, (2, 1, 1), out_dir)
+    wall.append(time.time())
+    return {"seg": seg, "dp": dp, "wall": wall}
+
+
+def _mesh_seg_rank(rank: int, vol: np.ndarray) -> dict:
+    """The sharded fused sliding window of the full-width total_fast net
+    (bf16, K1-K3) over this rank's tiles."""
+    import torch
+    import torch.distributed as dist
+
+    from boa_tpu_torch.models.unet import cast_model
+    from boa_tpu_torch.ops import pallas_conv as pc
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.ops import rowconv as rc
+    from boa_tpu_torch.parallel.mesh import make_mesh
+    from boa_tpu_torch.parallel.sharded_inference import (my_tiles,
+                                                          sliding_window_seg_sharded_chunked)
+
+    patch = (128, 128, 128)
+    model = cast_model(_total_fast_model(torch, 0, True), torch.bfloat16)
+    starts = pp.tile_starts(MESH_GRID, patch, 0.5)
+    gauss = pp.gaussian_importance_map(patch)
+    mesh = make_mesh(2, ("dp",), (2,))
+    v = torch.from_numpy(vol).cuda()
+    rc.reset_launches()
+    pc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = sliding_window_seg_sharded_chunked([model], v, starts, gauss, 118, mesh,
+                                             compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return {"rank": rank, "tiles": len(my_tiles(starts, mesh)), "seconds": time.perf_counter() - t0,
+            "launches": dict(rc.LAUNCHES, **pc.LAUNCHES), "labels": seg.cpu().numpy(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "backend": dist.get_backend()}
+
+
+def _mesh_dp_batch():
+    from boa_tpu_torch.parallel.dryrun import PATCH
+
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 25, (2, *PATCH)).astype(np.int64)
+    x = (y[..., None] / 25 + rng.normal(0, 0.5, (2, *PATCH, 1))).astype(np.float32)
+    return x, y
+
+
+def _mesh_dp_step(rank, shape, out_dir: str) -> dict:
+    """One float32 SGD step of the dry run's flagship net from seed 0 on the
+    card: over a (2, 1, 1) mesh of gloo ranks with `shape`, else alone."""
+    import torch
+
+    from boa_tpu_torch.parallel.dryrun import flagship_arch
+    from boa_tpu_torch.train.trainer import TrainConfig, Trainer
+    from boa_tpu_torch.weights.convert import _flatten, params_to_numpy
+
+    mesh = None
+    if shape is not None:
+        from boa_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(2, ("dp", "sp", "tp"), shape)
+    tr = Trainer(TrainConfig(arch=flagship_arch(), compute_dtype="float32"), out_dir, seed=0,
+                 device="cuda", mesh=mesh)
+    x, y = (torch.from_numpy(a).cuda() for a in _mesh_dp_batch())
+    if tr.spmd is not None:
+        x, y = tr.spmd.local_batch(x, y)
+    m = tr._step(tr.state.model, tr.state.optimizer, x, y, 1e-2)
+    model, _ = tr.whole()
+    leaves: dict = {}
+    if tr.writer:
+        _flatten(params_to_numpy(model), "", leaves)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "params": leaves,
+            "rows": int(x.shape[0])}
+
+
+# mesh (a): the dry run's command line, `python -m boa_tpu_torch.parallel.
+# dryrun --n 1` (its `main`), in a process that imports torch and the port
+# and then waits for the gate file given as its argument
+_DRYRUN_GATED = """
+import os, sys, time
+import torch
+from boa_tpu_torch.parallel import dryrun
+deadline = time.monotonic() + 900
+while not os.path.exists(sys.argv[1]):
+    if time.monotonic() > deadline:
+        sys.exit("the mesh phase never opened " + sys.argv[1])
+    time.sleep(0.05)
+sys.exit(dryrun.main(["--n", "1"]))
+"""
+
+
+class _MeshRanks:
+    """mesh (b) and (c)'s two gloo ranks on the card, and (a)'s dry-run
+    command, started ahead of the phase (they start up and import while the
+    primus phase runs) and held at a gate file until `open()`: none of their
+    card work overlaps another phase's."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+        from pathlib import Path
+
+        from boa_tpu_torch.parallel.mesh import spawn_ranks
+
+        self.tmp = tempfile.TemporaryDirectory()
+        root = Path(self.tmp.name)
+        self.gate = root / "gate"
+        self.opened = False
+        self.vol = _mesh_volume()
+        self.pool = ThreadPoolExecutor(1)
+        self.wall_spawn = time.time()
+        self.future = self.pool.submit(spawn_ranks, _mesh_rank, 2,
+                                       (self.vol, str(root / "dp"), str(self.gate)),
+                                       device="cuda", backend="gloo", timeout=1200)
+        self.dry = subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_GATED, str(self.gate)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=_cli_env(),
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def open(self) -> None:
+        self.wall_open = time.time()
+        self.gate.touch()
+        self.opened = True
+
+    def result(self) -> tuple[list, dict]:
+        """(the two ranks' results, the dry run's exit code, output and
+        seconds from the gate to its end)."""
+        try:
+            ranks = self.future.result()
+            out, err = self.dry.communicate(timeout=600)
+            dry = {"returncode": self.dry.returncode, "stdout": out, "stderr": err,
+                   "open_to_end_s": time.time() - self.wall_open}
+            return ranks, dry
+        finally:
+            if self.dry.poll() is None:
+                self.dry.kill()
+                self.dry.communicate()
+            self.pool.shutdown()
+            self.tmp.cleanup()
+
+
+def phase_mesh(torch, rc, pc, ranks_ahead: _MeshRanks) -> dict:
+    """Multi-device on torch.distributed with one card. (a) The dry run as
+    its command line (`python -m boa_tpu_torch.parallel.dryrun --n 1`: its
+    `main`, `dryrun_multichip`, one spawned rank on an NCCL group of one):
+    the flagship bf16 step over a (1, 1, 1) mesh, finite; and more ranks
+    than cards refused. (b) Two
+    gloo ranks on the card deal the 12 tiles of a 224x192x160 grid (the
+    fast study's 3 mm grid, z cut from 300) through
+    `sliding_window_seg_sharded_chunked` with the full-width total_fast net
+    on K1-K3 and all-reduce their float32 volumes: labels > 0.99 against
+    `sliding_window_seg_chunked` in this process (K1-K3's sums are atomic),
+    each rank's launches its tiles x (4, 1, 1) (`launches_mesh`: both
+    ranks'). (c) The two ranks take one float32 dp step of the flagship net
+    (a batch of 2 at 32x32x64, a row each): the loss within 1e-4 relative
+    of this process's step on the whole batch, the parameters within 1e-5.
+    (b) and (c) share one group of two spawned ranks, started ahead of the
+    phase with (a)'s command and held at a gate (`_MeshRanks`); (a) and this
+    process's references run beside them. gloo reduces CUDA tensors
+    (all_reduce and broadcast), NCCL cannot put two ranks on one card, so
+    sp and tp run here at world size 1 only; their 2- and 4-rank checks are
+    the CPU tests."""
+    from pathlib import Path
+
+    from boa_tpu_torch.inference.sliding_window import sliding_window_seg_chunked
+    from boa_tpu_torch.models.unet import cast_model
+    from boa_tpu_torch.ops import preprocess as pp
+    from boa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = Path(tmp_dir.name)
+
+    # ---- (b) the sharded sliding window and (c) a dp step, two gloo ranks
+    # on the card (spawned ahead, `_MeshRanks`): let them go; this process's
+    # part runs beside them
+    vol = ranks_ahead.vol
+    patch = (128, 128, 128)
+    starts = pp.tile_starts(MESH_GRID, patch, 0.5)
+    t_open = time.perf_counter()
+    ranks_ahead.open()
+
+    # ---- (a) more ranks than cards: refused before any spawn (the command
+    # itself runs beside this process, `_MeshRanks`)
+    try:
+        dryrun_multichip(torch.cuda.device_count() + 1, "cuda")
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    assert "cards" in refused, refused
+
+    # this process's references: the one-process window and dp step
+    model = cast_model(_total_fast_model(torch, 0, True), torch.bfloat16)
+    v = torch.from_numpy(vol).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = sliding_window_seg_chunked([model], v, starts, pp.gaussian_importance_map(patch),
+                                     118, compute_dtype=torch.bfloat16,
+                                     accum_dtype=torch.float32).cpu().numpy()
+    one_s = time.perf_counter() - t0
+    del model, v
+    torch.cuda.empty_cache()
+    alone = _mesh_dp_step(0, None, str(root / "one"))
+    both, dry = ranks_ahead.result()
+    open_s = time.perf_counter() - t_open
+    line = dry["stdout"].strip().splitlines()[-1] if dry["stdout"].strip() else ""
+    res["dryrun"] = {"returncode": dry["returncode"], "line": line,
+                     "open_to_end_s": dry["open_to_end_s"], "refused": refused,
+                     "backend": "nccl"}
+    emit({"phase": "mesh", "part": "dryrun", **res["dryrun"]})
+    assert dry["returncode"] == 0, dry["stderr"][-3000:]
+    assert line.startswith("dryrun_multichip(1): mesh dp=1 sp=1 tp=1") and line.endswith(
+        f"on {torch.cuda.get_device_name(0)} ok"), line
+    found = re.search(r"loss=(\S+) grad_norm=(\S+) on ", line)
+    assert found and all(np.isfinite(float(v)) for v in found.groups()), line
+    ranks = [q["seg"] for q in both]
+    launches = {k: sum(q["launches"][k] for q in ranks) for k in ranks[0]["launches"]}
+    res["sharded"] = {
+        "grid": list(MESH_GRID), "tiles": len(starts),
+        "tiles_per_rank": [q["tiles"] for q in ranks],
+        "backend": ranks[0]["backend"], "rank_seconds": [q["seconds"] for q in ranks],
+        "open_to_join_s": open_s, "one_process_s": one_s,
+        "spawn_ahead_s": ranks_ahead.wall_open - ranks_ahead.wall_spawn,
+        "rank_wall_s": [[w - ranks_ahead.wall_open for w in q["wall"]] for q in both],
+        "rank_peak_gib": [q["peak_gib"] for q in ranks],
+        "rank_launches": [q["launches"] for q in ranks], "launches": launches,
+        "ranks_equal": bool(np.array_equal(ranks[0]["labels"], ranks[1]["labels"])),
+        "agree_one_process": float((ranks[0]["labels"] == one).mean()),
+        "classes_present": int(np.unique(one).size)}
+    emit({"phase": "mesh", "part": "sharded_seg", **res["sharded"]})
+    assert len(starts) == 12 and sum(q["tiles"] for q in ranks) == 12, res["sharded"]
+    for q in ranks:
+        assert q["launches"] == _want_launches(q["tiles"]), q["launches"]
+    assert res["sharded"]["ranks_equal"] and res["sharded"]["agree_one_process"] > 0.99
+
+    # ---- (c) the dp step against this process's on the whole batch
+    two = [q["dp"] for q in both]
+    err = max(float(np.abs(two[0]["params"][k] - alone["params"][k]).max())
+              for k in alone["params"])
+    res["dp_step"] = {"loss": [q["loss"] for q in two] + [alone["loss"]],
+                      "grad_norm": [q["grad_norm"] for q in two] + [alone["grad_norm"]],
+                      "rows_per_rank": [q["rows"] for q in two], "params_max_abs_diff": err}
+    emit({"phase": "mesh", "part": "dp_step", **res["dp_step"]})
+    assert two[0]["loss"] == two[1]["loss"], res["dp_step"]
+    assert abs(two[0]["loss"] - alone["loss"]) <= 1e-4 * abs(alone["loss"]), res["dp_step"]
+    assert err <= 1e-5, res["dp_step"]
+
+    res["world_sizes"] = {
+        "dryrun": {"world": 1, "backend": "nccl", "mesh": [1, 1, 1]},
+        "sharded_seg": {"world": 2, "backend": "gloo", "mesh": [2]},
+        "dp_step": {"world": 2, "backend": "gloo", "mesh": [2, 1, 1]},
+        "sp_tp": "world size 1 on the card (NCCL cannot hold two ranks on one card); "
+                 "2 and 4 ranks in the CPU tests (tests/test_torch_parallel.py)"}
+    emit({"phase": "mesh", "part": "world_sizes", **res["world_sizes"]})
+    tmp_dir.cleanup()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "part": "done", "phase_s": res["phase_s"]})
+    return res
+
+
 def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dict:
     """The kernel summary row: times and bounds summed over `mine`, the calls
     of one tile's forward; the largest error over every `checked` call."""
@@ -4411,7 +4978,7 @@ def _row(name: str, mine: list[dict], checked: list[dict], launches: int) -> dic
 
 
 def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, tools,
-             serve, pacs, train) -> list[dict]:
+             serve, pacs, train, mesh) -> list[dict]:
     summary = []
     for name in REPLACES:
         if name == "conv3d_in_act":  # per fused forward: its 17 calls
@@ -4423,7 +4990,8 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
                                 launches_tools=tools["launches"][name],
                                 launches_serve=serve["stream"]["launches"][name],
                                 launches_pacs=pacs["launches"][name],
-                                launches_train=train["launches"][name]))
+                                launches_train=train["launches"][name],
+                                launches_mesh=mesh["launches"][name]))
             continue
         # per tile: the four conv3d_rows calls are 1->32, 32->32 (into the
         # concat), 64->32, 32->32; K2 and K3 on the concat slice, as the main
@@ -4450,6 +5018,8 @@ def _summary(cases, fused_cases, fused, study, total, bca, cli, api, engine, too
         # the train -> serve loop's run_training: each epoch's eval forward
         # and the validation's tiles (the train step is eager)
         row["launches_train"] = train["launches"][name]
+        # the mesh phase's sharded sliding window: both gloo ranks' tiles
+        row["launches_mesh"] = mesh["launches"][name]
         if name == "conv3d_rows":
             row["finish_launches"] = study["launches"]["conv3d_rows_finish"]
         summary.append(row)
@@ -4481,44 +5051,83 @@ def main() -> int:
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
+    last = [t_script]
+
+    def ended(name):   # each phase's seconds, on stderr
+        now = time.perf_counter()
+        print(f"chip_smoke: {name} {now - last[0]:.1f} s (at {now - t_script:.1f} s)",
+              file=sys.stderr, flush=True)
+        last[0] = now
+
     phase_device(torch, _build)
+    ended("device")
     if "kernels" in phases:
         cases = phase_kernels(torch, rc)
+        ended("kernels")
     if "forward" in phases:
         phase_forward(torch, rc)
+        ended("forward")
     if "fused" in phases:
         fused_cases, fused = phase_fused(torch, rc, pc, profile_run)
+        ended("fused")
     if "study" in phases:
         study = phase_study(torch, rc, pc, profile_run)
+        ended("study")
     if "total" in phases:
         total = phase_total(torch, rc, pc, profile_run)
+        ended("total")
     if "measure" in phases:
         phase_measure(torch, rc, pc, profile_run)
+        ended("measure")
     if "bca" in phases:
         # with the cli phase after it, bca (c) only warms up: the cli phase
         # times the same study through the CLI
         bca = phase_bca(torch, rc, pc, timed="cli" not in phases)
+        ended("bca")
     if "cli" in phases:
         cli = phase_cli(torch, rc, pc)
+        ended("cli")
     if "dicom" in phases:
         phase_dicom(torch, rc, pc)
+        ended("dicom")
     if "render" in phases:
         phase_render(torch, rc, pc)
+        ended("render")
     if "api" in phases:
         api = phase_api(torch, rc, pc)
+        ended("api")
     if "engine" in phases:
         engine = phase_engine(torch, rc, pc)
+        ended("engine")
     if "tools" in phases:
         tools = phase_tools(torch, rc, pc)
+        ended("tools")
     if "serve" in phases:
         serve = phase_serve(torch, rc, pc)
+        ended("serve")
     if "pacs" in phases:
         pacs = phase_pacs(torch, rc, pc)
+        ended("pacs")
     if "train" in phases:
         train = phase_train(torch, rc, pc)
+        ended("train")
+    # the mesh phase's ranks start up beside the primus phase, held at a gate
+    ranks_ahead = _MeshRanks() if "mesh" in phases else None
+    try:
+        if "primus" in phases:
+            phase_primus(torch, rc, pc)
+            ended("primus")
+        if "mesh" in phases:
+            mesh = phase_mesh(torch, rc, pc, ranks_ahead)
+            ended("mesh")
+    finally:
+        if ranks_ahead is not None and not ranks_ahead.opened:
+            ranks_ahead.open()   # a failed phase lets them end instead of waiting
+            ranks_ahead.result()
     if phases == ALL_PHASES:
         emit({"kernels": _summary(cases, fused_cases, fused, study, total, bca, cli, api,
-                                  engine, tools, serve, pacs, train)})
+                                  engine, tools, serve, pacs, train, mesh)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

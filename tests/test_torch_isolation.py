@@ -51,7 +51,10 @@ front = {"boa_tpu_torch.cli", "boa_tpu_torch.__main__", "boa_tpu_torch.commands"
          "boa_tpu_torch.train.run_training", "boa_tpu_torch.engine.planner",
          "boa_tpu_torch.engine.plan_and_preprocess",
          "boa_tpu_torch.engine.dataset_conversion", "boa_tpu_torch.weights.manager",
-         "boa_tpu_torch.weights.sharing"}
+         "boa_tpu_torch.weights.sharing", "boa_tpu_torch.models.primus",
+         "boa_tpu_torch.engine.benchmark", "boa_tpu_torch.parallel",
+         "boa_tpu_torch.parallel.mesh", "boa_tpu_torch.parallel.spmd",
+         "boa_tpu_torch.parallel.sharded_inference", "boa_tpu_torch.parallel.dryrun"}
 print(len([k for k in sys.modules if k.startswith("boa_tpu_torch")]), bad,
       sorted(front - set(sys.modules)))
 sys.exit(1 if bad or not front <= set(sys.modules) else 0)
@@ -68,7 +71,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     PACS layer's (pacs/, the sinks in io/storage.py, templates/), with a
     stub for the `orthanc` module that Orthanc's runtime provides, and the
     train -> serve loop's (train/, the planner, preprocessing and dataset
-    conversion in engine/, the weights manager and sharing)."""
+    conversion in engine/, the weights manager and sharing), and the Primus
+    ViT, the training benchmark and the multi-device layer's (parallel/)."""
     r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
