@@ -35,6 +35,7 @@ from boa_tpu_torch.ops import postprocessing as pped
 from boa_tpu_torch.ops import resample as rs
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.tasks.registry import TaskConfig, resolve_task
+from boa_tpu_torch.utils import timing
 from boa_tpu_torch.utils.persistent_config import increase_prediction_counter
 from boa_tpu_torch.utils.timing import Spans
 
@@ -152,79 +153,79 @@ def predict_image(
     if img.data.ndim > 3:
         img = NiftiImage(data=np.asarray(img.data)[..., 0], affine=img.affine)
     sp = Spans(spans, device)
+    if crop_mask is not None and not np.asarray(crop_mask.data).any():
+        return _empty_result(img, label_map)
 
     # --- crop to an organ mask from an earlier run (the crop cascade)
     img_orig = img
     bbox = None
-    if crop_mask is not None:
-        if not np.asarray(crop_mask.data).any():
-            return _empty_result(img, label_map)
-        addon = crop_addon_mm if crop_addon_mm is not None else task.crop_addon
-        img, bbox = cropping.crop_to_mask(img, crop_mask, addon_mm=addon,
-                                          dtype=np.int32)
+    with sp.span("body_crop"):
+        if crop_mask is not None:
+            addon = crop_addon_mm if crop_addon_mm is not None else task.crop_addon
+            img, bbox = cropping.crop_to_mask(img, crop_mask, addon_mm=addon,
+                                              dtype=np.int32)
 
-    # --- in-plane body crop for direct callers (cached on the parent image)
-    body_info = None
-    if crop_mask is None and getattr(img, "crop_info", None) is None:
-        cached = getattr(img, "_body_cropped", None)
-        if cached is not None:
-            img, body_info = cached
-        else:
-            cropped, body_info = cropping.body_crop_xy(img)
-            if body_info is not None:
-                object.__setattr__(img, "_body_cropped", (cropped, body_info))
-                img = cropped
-    sp.mark("body_crop")
+        # --- in-plane body crop for direct callers (cached on the parent image)
+        body_info = None
+        if crop_mask is None and getattr(img, "crop_info", None) is None:
+            cached = getattr(img, "_body_cropped", None)
+            if cached is not None:
+                img, body_info = cached
+            else:
+                cropped, body_info = cropping.body_crop_xy(img)
+                if body_info is not None:
+                    object.__setattr__(img, "_body_cropped", (cropped, body_info))
+                    img = cropped
 
     # --- upload once, canonical orientation and resample on the device
-    ornt, canon_affine, canon_shape, canon_zooms = nifti.canonical_geometry(img)
-    data_dev = nifti.apply_orientation_device(img.device_data(device), ornt)
-    sp.mark("upload+orient")
-    resample = task.resample
-    if task.resample_only_thickness and resample is not None:
-        resample = (canon_zooms[0], canon_zooms[1], resample[2])
-    ci = getattr(img, "crop_info", None)
-    crop_axes = None if ci is None else _canonical_crop_axes(ci, ornt)
-    bwd_windows = fake_geom = None
-    if resample is not None and not np.allclose(canon_zooms, resample):
-        out_shape, zoom, new_spacing = rs.change_spacing_shape(
-            canon_shape, canon_zooms, resample)
-        fwd_windows = None
-        rsp_affine = rs.rescale_affine(canon_affine, zoom)
-        if crop_axes is not None:
-            # windowed operators keep the cropped model grid an exact subgrid
-            # of the uncropped one (and the fake hook paints on the full grid)
-            full_c, off_c = crop_axes
-            full_out = rs.zoom_output_shape(full_c, zoom)
-            out0 = [min(max(int(round(off_c[p] * float(zoom[p]))), 0),
-                        full_out[p] - out_shape[p]) for p in range(3)]
-            fwd_windows = tuple(
-                None if (full_c[p] == canon_shape[p]
-                         and full_out[p] == out_shape[p]) else
-                (full_c[p], full_out[p], off_c[p], out0[p]) for p in range(3))
-            bwd_windows = tuple(None if w is None else (w[1], w[0], w[3], w[2])
-                                for w in fwd_windows)
-            fake_geom = (tuple(int(n) for n in full_out), tuple(out0))
-            full_affine = np.copy(canon_affine)
-            full_affine[:3, 3] = (canon_affine @ np.array(
-                [-off_c[0], -off_c[1], -off_c[2], 1.0]))[:3]
-            full_rsp = rs.rescale_affine(full_affine, zoom)
-            rsp_affine = np.copy(full_rsp)
-            rsp_affine[:3, 3] = (full_rsp @ np.array(
-                [out0[0], out0[1], out0[2], 1.0]))[:3]
-        data_rsp = rs.resample_volume(data_dev, out_shape, order=3,
-                                      convention="zoom",
-                                      windows=fwd_windows).to(torch.int32)
-        rsp_spacing = tuple(float(s) for s in new_spacing)
-    else:
-        data_rsp = data_dev.to(torch.int32)
-        rsp_affine = canon_affine
-        rsp_spacing = canon_zooms
-        if crop_axes is not None:  # unresampled: the crop is a subgrid already
-            fake_geom = (tuple(int(n) for n in crop_axes[0]), tuple(crop_axes[1]))
-    if fake_predict is None:
-        fake_geom = None
-    sp.mark("resample")
+    with sp.span("upload+orient"):
+        ornt, canon_affine, canon_shape, canon_zooms = nifti.canonical_geometry(img)
+        data_dev = nifti.apply_orientation_device(img.device_data(device), ornt)
+    with sp.span("resample"):
+        resample = task.resample
+        if task.resample_only_thickness and resample is not None:
+            resample = (canon_zooms[0], canon_zooms[1], resample[2])
+        ci = getattr(img, "crop_info", None)
+        crop_axes = None if ci is None else _canonical_crop_axes(ci, ornt)
+        bwd_windows = fake_geom = None
+        if resample is not None and not np.allclose(canon_zooms, resample):
+            out_shape, zoom, new_spacing = rs.change_spacing_shape(
+                canon_shape, canon_zooms, resample)
+            fwd_windows = None
+            rsp_affine = rs.rescale_affine(canon_affine, zoom)
+            if crop_axes is not None:
+                # windowed operators keep the cropped model grid an exact subgrid
+                # of the uncropped one (and the fake hook paints on the full grid)
+                full_c, off_c = crop_axes
+                full_out = rs.zoom_output_shape(full_c, zoom)
+                out0 = [min(max(int(round(off_c[p] * float(zoom[p]))), 0),
+                            full_out[p] - out_shape[p]) for p in range(3)]
+                fwd_windows = tuple(
+                    None if (full_c[p] == canon_shape[p]
+                             and full_out[p] == out_shape[p]) else
+                    (full_c[p], full_out[p], off_c[p], out0[p]) for p in range(3))
+                bwd_windows = tuple(None if w is None else (w[1], w[0], w[3], w[2])
+                                    for w in fwd_windows)
+                fake_geom = (tuple(int(n) for n in full_out), tuple(out0))
+                full_affine = np.copy(canon_affine)
+                full_affine[:3, 3] = (canon_affine @ np.array(
+                    [-off_c[0], -off_c[1], -off_c[2], 1.0]))[:3]
+                full_rsp = rs.rescale_affine(full_affine, zoom)
+                rsp_affine = np.copy(full_rsp)
+                rsp_affine[:3, 3] = (full_rsp @ np.array(
+                    [out0[0], out0[1], out0[2], 1.0]))[:3]
+            data_rsp = rs.resample_volume(data_dev, out_shape, order=3,
+                                          convention="zoom",
+                                          windows=fwd_windows).to(torch.int32)
+            rsp_spacing = tuple(float(s) for s in new_spacing)
+        else:
+            data_rsp = data_dev.to(torch.int32)
+            rsp_affine = canon_affine
+            rsp_spacing = canon_zooms
+            if crop_axes is not None:  # unresampled: the crop is a subgrid already
+                fake_geom = (tuple(int(n) for n in crop_axes[0]), tuple(crop_axes[1]))
+        if fake_predict is None:
+            fake_geom = None
 
     # --- step size heuristic (TotalSegmentator nnunet.py:507-514)
     if step_size is None:
@@ -246,22 +247,26 @@ def predict_image(
         for tid in task.task_ids:
             probs_path = None if probs_base is None else probs_base.with_name(
                 probs_base.stem.split(".")[0] + f"_{tid}.npz")
-            part = torch.as_tensor(_predict_one(
-                data_rsp, rsp_spacing, tid, save_probabilities=probs_path,
-                fake_cache=fake_cache, **run)).to(device)
-            lut = torch.from_numpy(_part_lut(tid, inv, to_part=False)).to(device)
-            seg_dev = torch.where(part > 0, lut[part.long()], seg_dev)
-            sp.mark(f"predict_{tid}")
+            loaded = _load_weights(tid, run)
+            with sp.span(f"predict_{tid}"):
+                seg = _predict_one(data_rsp, rsp_spacing, tid, loaded,
+                                   save_probabilities=probs_path, fake_cache=fake_cache,
+                                   **run)
+                with timing.span("merge", device):
+                    part = torch.as_tensor(seg).to(device)
+                    lut = torch.from_numpy(_part_lut(tid, inv, to_part=False)).to(device)
+                    seg_dev = torch.where(part > 0, lut[part.long()], seg_dev)
     else:
-        seg_any = _predict_one(data_rsp, rsp_spacing, task.task_ids[0],
-                               save_probabilities=probs_base, **run)
-        # the labels stay where they were made (the device for the real
-        # predictor, the host for the fake hook) until a stage needs them
-        if isinstance(seg_any, np.ndarray):
-            seg_host = seg_any.astype(np.uint8, copy=False)
-        else:
-            seg_dev = seg_any.to(torch.uint8)
-        sp.mark("predict")
+        loaded = _load_weights(task.task_ids[0], run)
+        with sp.span("predict"):
+            seg_any = _predict_one(data_rsp, rsp_spacing, task.task_ids[0], loaded,
+                                   save_probabilities=probs_base, **run)
+            # the labels stay where they were made (the device for the real
+            # predictor, the host for the fake hook) until a stage needs them
+            if isinstance(seg_any, np.ndarray):
+                seg_host = seg_any.astype(np.uint8, copy=False)
+            else:
+                seg_dev = seg_any.to(torch.uint8)
 
     def _seg_host() -> np.ndarray:
         nonlocal seg_host
@@ -275,116 +280,127 @@ def predict_image(
             seg_dev = packing.upload_labels(seg_host, max_label, device)
         return seg_dev
 
-    # --- strip training-only auxiliary labels
-    if task.name + "_auxiliary" in class_maps.class_map:
-        seg_host, seg_dev = pped.remove_auxiliary_labels(_seg_host(), task.name), None
+    with sp.span("download+postprocess"):
+        # --- strip training-only auxiliary labels
+        if task.name + "_auxiliary" in class_maps.class_map:
+            seg_host, seg_dev = pped.remove_auxiliary_labels(_seg_host(), task.name), None
 
-    # --- multilabel postprocessing on the model grid, on the host
-    vox_vol = float(np.prod(rsp_spacing))
-    if task.keep_largest_blob:
-        seg_np = pped.keep_largest_blob_multilabel(_seg_host(), label_map,
-                                                   ["body_trunc"])
-        seg_host = pped.remove_small_blobs_multilabel(
-            seg_np, label_map, ["body_extremities"],
-            interval=(50000.0 / vox_vol, 1e10))
-        seg_dev = None
-    if remove_small_blobs:
-        # drop components < 200 mm³ from every class (TotalSegmentator -rmb)
-        seg_host = pped.remove_small_blobs_multilabel(
-            _seg_host(), label_map, list(label_map.values()),
-            interval=(200.0 / vox_vol, 1e10))
-        seg_dev = None
-    seg_model_grid = NiftiImage(data=_seg_host(), affine=rsp_affine)
-    sp.mark("download+postprocess")
+        # --- multilabel postprocessing on the model grid, on the host
+        vox_vol = float(np.prod(rsp_spacing))
+        if task.keep_largest_blob:
+            seg_np = pped.keep_largest_blob_multilabel(_seg_host(), label_map,
+                                                       ["body_trunc"])
+            seg_host = pped.remove_small_blobs_multilabel(
+                seg_np, label_map, ["body_extremities"],
+                interval=(50000.0 / vox_vol, 1e10))
+            seg_dev = None
+        if remove_small_blobs:
+            # drop components < 200 mm³ from every class (TotalSegmentator -rmb)
+            seg_host = pped.remove_small_blobs_multilabel(
+                _seg_host(), label_map, list(label_map.values()),
+                interval=(200.0 / vox_vol, 1e10))
+            seg_dev = None
+        seg_model_grid = NiftiImage(data=_seg_host(), affine=rsp_affine)
 
     # --- statistics on the model grid, on the device
     stats = None
     if statistics:
-        stats = get_basic_statistics(
-            _seg_dev(), data_rsp, rsp_spacing, label_map,
-            exclude_masks_at_border=stats_exclude_border, metric=stats_aggregation,
-            normalized_intensities=stats_normalized_intensities)
-        sp.mark("statistics")
+        with sp.span("statistics"):
+            stats = get_basic_statistics(
+                _seg_dev(), data_rsp, rsp_spacing, label_map,
+                exclude_masks_at_border=stats_exclude_border, metric=stats_aggregation,
+                normalized_intensities=stats_normalized_intensities)
 
-    # --- back to the input grid: a finer model grid is downsampled on the
-    #     device and the small seg moved; a coarser one moves first
-    keep_dev = keep_device_seg and bbox is None and task.remove_outside is None
-    inv_ornt = nifti.inv_orientation(ornt)
-    rsp_shape = tuple(int(n) for n in data_rsp.shape)
-    seg_out_dev = None
-    if nnunet_resampling and resample is not None and rsp_shape != tuple(canon_shape):
-        # one-hot order-1 per class + argmax (TotalSegmentator's
-        # nnunet_resampling flag): smoother label borders
-        seg_canon = rs.resample_seg_onehot(_seg_dev(), canon_shape, max_label + 1,
-                                           order=1, convention="zoom",
-                                           windows=bwd_windows)
-        seg_out_dev = nifti.apply_orientation_device(seg_canon, inv_ornt)
-        seg_out_np = packing.download_labels(seg_out_dev)
-    elif resample is not None and rsp_shape != tuple(canon_shape) and \
-            np.prod(rsp_shape) > np.prod(canon_shape):
-        seg_canon = rs.resample_nearest(_seg_dev(), canon_shape,
-                                        convention="zoom", windows=bwd_windows)
-        seg_out_dev = nifti.apply_orientation_device(seg_canon, inv_ornt)
-        seg_out_np = packing.download_labels(seg_out_dev)
-    else:
-        seg_canon_np = _seg_host()
-        if resample is not None and seg_canon_np.shape != tuple(canon_shape):
-            seg_canon_np = rs.resample_nearest_host(
-                seg_canon_np, canon_shape, convention="zoom", windows=bwd_windows)
-        seg_out_np = np.ascontiguousarray(nifti.apply_orientation(seg_canon_np,
-                                                                  inv_ornt))
-        if keep_dev:
-            # the same gathers on the device: bit-identical to the host copy
-            sd = _seg_dev()
-            if resample is not None and tuple(sd.shape) != tuple(canon_shape):
-                sd = rs.resample_nearest(sd, canon_shape, convention="zoom",
-                                         windows=bwd_windows)
-            seg_out_dev = nifti.apply_orientation_device(sd, inv_ornt)
-    seg_out = NiftiImage(data=seg_out_np, affine=img.affine.copy(),
-                         crop_info=None if body_info is not None else ci)
-    if bbox is not None:
-        seg_out = cropping.undo_crop(seg_out, img_orig, bbox)
-    if body_info is not None:
-        seg_out = NiftiImage(data=cropping.pad_back(seg_out.data, body_info),
-                             affine=img_orig.affine.copy())
-        if keep_dev and seg_out_dev is not None:
-            full = torch.zeros(img_orig.shape, dtype=seg_out_dev.dtype, device=device)
-            full[body_info.x0:body_info.x1, body_info.y0:body_info.y1] = seg_out_dev
-            seg_out_dev = full
-    if seg_out.shape != img_orig.shape:
-        raise RuntimeError(f"shape mismatch after pipeline: {seg_out.shape} "
-                           f"vs {img_orig.shape}")
+    with sp.span("back_resample+pad"):
+        # --- back to the input grid: a finer model grid is downsampled on the
+        #     device and the small seg moved; a coarser one moves first
+        keep_dev = keep_device_seg and bbox is None and task.remove_outside is None
+        inv_ornt = nifti.inv_orientation(ornt)
+        rsp_shape = tuple(int(n) for n in data_rsp.shape)
+        seg_out_dev = None
+        if nnunet_resampling and resample is not None and rsp_shape != tuple(canon_shape):
+            # one-hot order-1 per class + argmax (TotalSegmentator's
+            # nnunet_resampling flag): smoother label borders
+            seg_canon = rs.resample_seg_onehot(_seg_dev(), canon_shape, max_label + 1,
+                                               order=1, convention="zoom",
+                                               windows=bwd_windows)
+            seg_out_dev = nifti.apply_orientation_device(seg_canon, inv_ornt)
+            seg_out_np = packing.download_labels(seg_out_dev)
+        elif resample is not None and rsp_shape != tuple(canon_shape) and \
+                np.prod(rsp_shape) > np.prod(canon_shape):
+            seg_canon = rs.resample_nearest(_seg_dev(), canon_shape,
+                                            convention="zoom", windows=bwd_windows)
+            seg_out_dev = nifti.apply_orientation_device(seg_canon, inv_ornt)
+            seg_out_np = packing.download_labels(seg_out_dev)
+        else:
+            seg_canon_np = _seg_host()
+            if resample is not None and seg_canon_np.shape != tuple(canon_shape):
+                seg_canon_np = rs.resample_nearest_host(
+                    seg_canon_np, canon_shape, convention="zoom", windows=bwd_windows)
+            seg_out_np = np.ascontiguousarray(nifti.apply_orientation(seg_canon_np,
+                                                                      inv_ornt))
+            if keep_dev:
+                # the same gathers on the device: bit-identical to the host copy
+                sd = _seg_dev()
+                if resample is not None and tuple(sd.shape) != tuple(canon_shape):
+                    sd = rs.resample_nearest(sd, canon_shape, convention="zoom",
+                                             windows=bwd_windows)
+                seg_out_dev = nifti.apply_orientation_device(sd, inv_ornt)
+        seg_out = NiftiImage(data=seg_out_np, affine=img.affine.copy(),
+                             crop_info=None if body_info is not None else ci)
+        if bbox is not None:
+            seg_out = cropping.undo_crop(seg_out, img_orig, bbox)
+        if body_info is not None:
+            seg_out = NiftiImage(data=cropping.pad_back(seg_out.data, body_info),
+                                 affine=img_orig.affine.copy())
+            if keep_dev and seg_out_dev is not None:
+                full = torch.zeros(img_orig.shape, dtype=seg_out_dev.dtype, device=device)
+                full[body_info.x0:body_info.x1, body_info.y0:body_info.y1] = seg_out_dev
+                seg_out_dev = full
+        if seg_out.shape != img_orig.shape:
+            raise RuntimeError(f"shape mismatch after pipeline: {seg_out.shape} "
+                               f"vs {img_orig.shape}")
 
-    # --- zero the labels outside the dilated crop mask (heartchambers_highres)
-    if task.remove_outside is not None and crop_mask is not None:
-        mm = task.remove_outside_dilation_mm or 10.0
-        seg_out.data = pped.remove_outside_of_mask(
-            np.asarray(seg_out.data), np.asarray(crop_mask.data) > 0,
-            addon=max(1, int(mm / float(np.mean(img_orig.zooms)))))
-    try:  # per-install prediction counter (utils/persistent_config.py)
-        increase_prediction_counter()
-    except Exception:  # bookkeeping never breaks a study
-        logger.debug("prediction counter update failed", exc_info=True)
-    seg_out.set_label_map(label_map)
-    sp.mark("back_resample+pad")
+        # --- zero the labels outside the dilated crop mask (heartchambers_highres)
+        if task.remove_outside is not None and crop_mask is not None:
+            mm = task.remove_outside_dilation_mm or 10.0
+            seg_out.data = pped.remove_outside_of_mask(
+                np.asarray(seg_out.data), np.asarray(crop_mask.data) > 0,
+                addon=max(1, int(mm / float(np.mean(img_orig.zooms)))))
+        try:  # per-install prediction counter (utils/persistent_config.py)
+            increase_prediction_counter()
+        except Exception:  # bookkeeping never breaks a study
+            logger.debug("prediction counter update failed", exc_info=True)
+        seg_out.set_label_map(label_map)
     return PredictImageResult(seg=seg_out, seg_model_grid=seg_model_grid,
                               stats=stats, label_map=label_map,
                               seg_dev_full=seg_out_dev if keep_dev else None)
 
 
-def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, *,
+def _load_weights(task_id: int, run: dict):
+    """(plans, stacked fold models) of one (sub-)model, in the span
+    `load_weights`; None where the fake hook stands in for the network."""
+    fake = run["fake_predict"]
+    if fake is not None and not getattr(fake, "run_real", False):
+        return None
+    task = run["task"]
+    with run["sp"].span("load_weights"):
+        return load_stacked_cached(run["store"], task_id, task.trainer, task.model,
+                                   run["folds"], run["device"])
+
+
+def _predict_one(data_rsp: torch.Tensor, spacing, task_id: int, loaded, *,
                  task: TaskConfig, folds, step_size: float, store,
                  compute_dtype: str, fake_predict, bucket: int | None,
                  fake_geom: tuple | None, device: torch.device, sp: Spans,
                  save_probabilities: Path | None = None,
                  fake_cache: dict | None = None):
     """Labels of one (sub-)model on the model grid: a device tensor from the
-    predictor, a host array or device tensor from the fake hook."""
+    predictor on the `loaded` weights (`_load_weights`), a host array or
+    device tensor from the fake hook."""
 
     def predictor() -> Predictor:
-        plans, models = load_stacked_cached(store, task_id, task.trainer,
-                                            task.model, folds, device)
-        sp.mark("load_weights")
+        plans, models = loaded
         return Predictor(plans=plans, models=models, tile_step_size=step_size,
                          compute_dtype=compute_dtype, bucket=bucket, device=device)
 

@@ -38,6 +38,7 @@ from boa_tpu_torch.models.unet import ArchConfig, cast_model
 from boa_tpu_torch.ops import preprocess as pp
 from boa_tpu_torch.ops import resample as rs
 from boa_tpu_torch.plans.plans import ModelPlans
+from boa_tpu_torch.utils import timing
 from boa_tpu_torch.weights.convert import params_from_numpy
 
 logger = logging.getLogger(__name__)
@@ -284,13 +285,14 @@ class Predictor:
             z_pool = int(np.prod([s[2] for s in self.cfg.strides]))
             tb = 2 if (16 <= patch[2] <= 64 and z_pool >= 16
                        and not self.mirror_axes and len(starts) >= 2) else 1
-        return sliding_window_seg_chunked(
-            self._cast, v, starts, self._gauss(patch), self.cfg.num_classes,
-            mirror_axes=self.mirror_axes, compute_dtype=self._dtype,
-            accum_dtype=self._use_accum(padded),
-            seg_dtype=torch.uint8 if self.cfg.num_classes <= 255 else torch.int32,
-            revert=tuple((b, b + n) for (b, _), n in zip(pads, spatial)),
-            tile_batch=tb)
+        with timing.span("window", self.device):
+            return sliding_window_seg_chunked(
+                self._cast, v, starts, self._gauss(patch), self.cfg.num_classes,
+                mirror_axes=self.mirror_axes, compute_dtype=self._dtype,
+                accum_dtype=self._use_accum(padded),
+                seg_dtype=torch.uint8 if self.cfg.num_classes <= 255 else torch.int32,
+                revert=tuple((b, b + n) for (b, _), n in zip(pads, spatial)),
+                tile_batch=tb)
 
     # ------------------------------------------------------------------
     def predict(self, vol_xyz, spacing_xyz, return_device: bool = False,

@@ -20,6 +20,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from boa_tpu_torch.utils import timing
+
 # NIfTI-1 datatype codes <-> numpy dtypes
 _DTYPES = {
     2: np.uint8,
@@ -247,7 +249,9 @@ def load(path: str | Path, *, dtype: np.dtype | None = None) -> NiftiImage:
 def save(img: NiftiImage, path: str | Path) -> None:
     """Write a .nii or .nii.gz (by extension) with sform and qform set from
     the affine. A body-cropped image (`crop_info`) is zero-padded back to
-    its original grid."""
+    its original grid. Counts `save_bytes` (the voxel bytes after the
+    pad-back) and `save_gz_bytes` (the file's bytes) while a profiler
+    records (`utils/timing.py`)."""
     path = Path(path)
     data = np.asanyarray(img.data)
     crop = img.crop_info
@@ -338,6 +342,8 @@ def save(img: NiftiImage, path: str | Path) -> None:
                 _write_body(f)
         else:
             _write_body(raw)
+        timing.count("save_bytes", int(np.prod(out_shape)) * data.dtype.itemsize)
+        timing.count("save_gz_bytes", raw.tell())
 
 
 def io_orientation(affine: np.ndarray) -> np.ndarray:

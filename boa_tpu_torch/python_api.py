@@ -19,6 +19,7 @@ written by `nr_thr_saving` threads (the files are the reference's bytes).
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 from concurrent.futures import ThreadPoolExecutor
@@ -31,6 +32,7 @@ from boa_tpu_torch.io import nifti
 from boa_tpu_torch.io.nifti import NiftiImage
 from boa_tpu_torch.tasks import class_maps
 from boa_tpu_torch.tasks.registry import TASKS, get_task
+from boa_tpu_torch.utils import timing
 from boa_tpu_torch.utils.timing import Spans
 from boa_tpu_torch.weights.store import ModelStore
 
@@ -110,6 +112,18 @@ def _rough_crop_mask(img, organs, *, robust, mr, body, store, quiet, device):
     return NiftiImage(data=mask, affine=rough.seg.affine)
 
 
+def _one_study(fn):
+    """Each call of `fn` is one study: the recorder's root span `study`
+    (`utils/timing.py`), which every span inside it shares."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with timing.study():
+            return fn(*args, **kwargs)
+    return call
+
+
+@_one_study
 def totalsegmentator(
     input: "str | Path | NiftiImage",  # noqa: A002 (reference signature)
     output: "str | Path | None" = None,
@@ -191,7 +205,8 @@ def totalsegmentator(
 
     from boa_tpu_torch.inference.pipeline import predict_image
 
-    img, dicom_files = _load_input(input)
+    with timing.span("load_input"):
+        img, dicom_files = _load_input(input)
     if np.asarray(img.data).ndim > 3:
         # trim the component axis once, so the original-grid statistics and
         # the preview see the volume predict_image segments
@@ -330,9 +345,8 @@ def _save_outputs(seg_img, label_map, output: Path, output_types, ml, roi_subset
                   spans: Spans | None = None) -> None:
     """Write the segmentation in every requested output type
     (`nnunet.py:728-803` single-/multi-output saving logic); the per-class
-    masks on `nr_thr_saving` threads. `spans` marks `save_<type>`."""
+    masks on `nr_thr_saving` threads. `spans` times each in `save_<type>`."""
     sp = spans or Spans(None, "cpu")
-    sp.restart()
     selected = dict(label_map)
     if roi_subset is not None:
         selected = {k: v for k, v in selected.items() if v in roi_subset}
@@ -346,48 +360,48 @@ def _save_outputs(seg_img, label_map, output: Path, output_types, ml, roi_subset
             else output.stem.split(".")[0]
 
     headers = None
-    if any(ot.startswith("dicom") for ot in output_types):
-        from boa_tpu_torch.io import dicom
-
-        headers = [dicom.dcmread(f, stop_before_pixels=True) for f in dicom_files]
-
     for ot in output_types:
-        if ot == "nifti":
-            path = base_dir / f"{base_name}.nii.gz" if multi else output
-            if ml:
+        with sp.span(f"save_{ot}"):
+            if headers is None and ot.startswith("dicom"):
+                from boa_tpu_torch.io import dicom
+
+                headers = [dicom.dcmread(f, stop_before_pixels=True)
+                           for f in dicom_files]
+            if ot == "nifti":
+                path = base_dir / f"{base_name}.nii.gz" if multi else output
+                if ml:
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    nifti.save(seg_img, path)
+                else:
+                    out_dir = path if path.suffix == "" else path.parent
+                    out_dir.mkdir(parents=True, exist_ok=True)
+                    # the writer emits z-slices in Fortran order: masks of a
+                    # Fortran-ordered copy make each slice one contiguous copy
+                    data_f = np.asfortranarray(data)
+
+                    def save_mask(item):
+                        lb, name = item
+                        nifti.save(NiftiImage(data=(data_f == lb).astype(np.uint8),
+                                              affine=seg_img.affine.copy()),
+                                   out_dir / f"{name}.nii.gz")
+
+                    with ThreadPoolExecutor(max(1, int(nr_thr_saving))) as pool:
+                        list(pool.map(save_mask, selected.items()))
+            elif ot == "dicom_seg":
+                from boa_tpu_torch.io import dicom, dicom_seg
+
+                path = base_dir / f"{base_name}_seg.dcm" if multi else output
+                ds = dicom_seg.write_multiclass_seg(
+                    data, selected, headers, series_description=f"TotalSegmentator {task}")
                 path.parent.mkdir(parents=True, exist_ok=True)
-                nifti.save(seg_img, path)
-            else:
-                out_dir = path if path.suffix == "" else path.parent
-                out_dir.mkdir(parents=True, exist_ok=True)
-                # the writer emits z-slices in Fortran order: masks of a
-                # Fortran-ordered copy make each slice one contiguous copy
-                data_f = np.asfortranarray(data)
+                dicom.dcmwrite(path, ds)
+            elif ot == "dicom_rtstruct":
+                from boa_tpu_torch.io import dicom, rtstruct
 
-                def save_mask(item):
-                    lb, name = item
-                    nifti.save(NiftiImage(data=(data_f == lb).astype(np.uint8),
-                                          affine=seg_img.affine.copy()),
-                               out_dir / f"{name}.nii.gz")
-
-                with ThreadPoolExecutor(max(1, int(nr_thr_saving))) as pool:
-                    list(pool.map(save_mask, selected.items()))
-        elif ot == "dicom_seg":
-            from boa_tpu_torch.io import dicom, dicom_seg
-
-            path = base_dir / f"{base_name}_seg.dcm" if multi else output
-            ds = dicom_seg.write_multiclass_seg(
-                data, selected, headers, series_description=f"TotalSegmentator {task}")
-            path.parent.mkdir(parents=True, exist_ok=True)
-            dicom.dcmwrite(path, ds)
-        elif ot == "dicom_rtstruct":
-            from boa_tpu_torch.io import dicom, rtstruct
-
-            path = base_dir / f"{base_name}_rtstruct.dcm" if multi else output
-            ds = rtstruct.write_rtstruct(data, selected, headers, spans=sp.out)
-            path.parent.mkdir(parents=True, exist_ok=True)
-            dicom.dcmwrite(path, ds)
-        sp.mark(f"save_{ot}")
+                path = base_dir / f"{base_name}_rtstruct.dcm" if multi else output
+                ds = rtstruct.write_rtstruct(data, selected, headers, spans=sp.out)
+                path.parent.mkdir(parents=True, exist_ok=True)
+                dicom.dcmwrite(path, ds)
 
 
 def _derived_body_masks(img, out_dir: Path, quiet: bool) -> None:
