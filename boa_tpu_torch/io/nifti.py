@@ -14,6 +14,7 @@ from __future__ import annotations
 import gzip
 import json
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -246,19 +247,78 @@ def load(path: str | Path, *, dtype: np.dtype | None = None) -> NiftiImage:
                       extensions=extensions, descrip=h["descrip"])
 
 
+_TILE = 64              # x and y edge of a tile of the layout pass
+_SLAB_BYTES = 8 << 20   # most bytes of one slab of z-slices handed to the writer
+
+
+def _write_volume(f, data: np.ndarray, crop) -> None:
+    """Write the voxels of a 3-D volume to `f` in the file's order (z, then
+    y, then x: NIfTI's Fortran order), zero-padded back onto `crop`'s grid
+    when given, as C-contiguous (z, y, x) slabs of at most `_SLAB_BYTES`.
+
+    A Fortran-ordered volume is its own file order: without a crop its
+    slabs go out as views, with one as plain copies. Any other layout takes
+    the layout pass, which reads the source in `_TILE` x `_TILE` columns of
+    a slab's depth, so what a tile reads and writes stays in cache, and
+    counts the bytes it lays out as `nifti_layout_bytes` while a profiler
+    records. A helper thread lays out the next slab while this one is
+    written: numpy's copies and zlib both release the interpreter lock, and
+    every numpy call moves one tile or one slab, so a save on a HostWorker
+    thread never holds the lock for a whole volume."""
+    nx, ny, nz = data.shape
+    gx, gy, ox, oy = nx, ny, 0, 0
+    if crop is not None:
+        (gx, gy), ox, oy = crop.orig_shape[:2], crop.x0, crop.y0
+    step = max(1, _SLAB_BYTES // max(1, gx * gy * data.itemsize))
+    starts = range(0, nz, step)
+    src = data.T
+    if crop is None and src.flags.c_contiguous:
+        for z0 in starts:
+            f.write(src[z0:z0 + step])
+        return
+    blocked = not src.flags.c_contiguous
+    bufs = [np.zeros((min(step, nz), gy, gx), dtype=data.dtype)
+            for _ in range(min(2, len(starts)))]
+
+    def lay_out(i: int) -> np.ndarray:
+        z0 = starts[i]
+        z1 = min(nz, z0 + step)
+        slab = bufs[i % 2][:z1 - z0]
+        body = slab[:, oy:oy + ny, ox:ox + nx]
+        if not blocked:
+            body[...] = src[z0:z1]
+            return slab
+        for x0 in range(0, nx, _TILE):
+            for y0 in range(0, ny, _TILE):
+                body[:, y0:y0 + _TILE, x0:x0 + _TILE] = \
+                    data[x0:x0 + _TILE, y0:y0 + _TILE, z0:z1].T
+        return slab
+
+    with ThreadPoolExecutor(1) as helper:
+        pending = helper.submit(lay_out, 0) if starts else None
+        for i in range(len(starts)):
+            slab = pending.result()
+            if i + 1 < len(starts):
+                pending = helper.submit(lay_out, i + 1)
+            f.write(slab)
+    if blocked:
+        timing.count("nifti_layout_bytes", nz * gy * gx * data.itemsize)
+
+
 def save(img: NiftiImage, path: str | Path) -> None:
     """Write a .nii or .nii.gz (by extension) with sform and qform set from
     the affine. A body-cropped image (`crop_info`) is zero-padded back to
     its original grid. Counts `save_bytes` (the voxel bytes after the
     pad-back) and `save_gz_bytes` (the file's bytes) while a profiler
-    records (`utils/timing.py`)."""
+    records (`utils/timing.py`), and `nifti_layout_bytes` where a 3-D
+    volume takes the layout pass (`_write_volume`)."""
     path = Path(path)
     data = np.asanyarray(img.data)
     crop = img.crop_info
     if crop is not None:
         img = NiftiImage(data=data, affine=crop.orig_affine,
                          extensions=img.extensions, descrip=img.descrip)
-        if data.ndim != 3:  # 3-D volumes pad slice by slice in the writer below
+        if data.ndim != 3:  # 3-D volumes pad in the writer's slabs below
             from boa_tpu_torch.ops.cropping import pad_back
 
             data, crop = pad_back(data, crop), None
@@ -315,24 +375,12 @@ def save(img: NiftiImage, path: str | Path) -> None:
     ext_flag = b"\x01\x00\x00\x00" if ext_blocks else b"\x00\x00\x00\x00"
     head = bytes(hdr) + ext_flag + ext_blocks
 
-    # 3-D volumes go out one z-slice at a time: the pad-back, the
-    # Fortran-order copy and the compression work in steps of one slice, so
-    # a save on a HostWorker thread never holds the interpreter lock for
-    # a whole volume
     def _write_body(f) -> None:
         f.write(head)
         if ndim != 3:
             f.write(data.tobytes(order="F"))
             return
-        pad2d = None
-        if crop is not None:
-            pad2d = np.zeros(tuple(crop.orig_shape[:2]), dtype=data.dtype)
-        for k in range(data.shape[2]):
-            sl = data[:, :, k]
-            if pad2d is not None:
-                pad2d[crop.x0:crop.x1, crop.y0:crop.y1] = sl
-                sl = pad2d
-            f.write(sl.tobytes(order="F"))
+        _write_volume(f, data, crop)
 
     with open(path, "wb") as raw:
         if path.name.endswith(".gz"):

@@ -375,8 +375,8 @@ def _save_outputs(seg_img, label_map, output: Path, output_types, ml, roi_subset
                 else:
                     out_dir = path if path.suffix == "" else path.parent
                     out_dir.mkdir(parents=True, exist_ok=True)
-                    # the writer emits z-slices in Fortran order: masks of a
-                    # Fortran-ordered copy make each slice one contiguous copy
+                    # masks of a Fortran-ordered copy are in the file's order:
+                    # the writer deflates them with no layout pass
                     data_f = np.asfortranarray(data)
 
                     def save_mask(item):

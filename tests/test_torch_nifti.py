@@ -4,18 +4,21 @@ reference's (boa_tpu/io/nifti.py), same arrays made with numpy from a seed.
 Bars: a file either package writes is byte-identical to the other's and
 loads bit-identically in both (data, dtype, affine, extensions, descrip);
 headers, the scl slope/inter, qform-only and sform files, and the body-crop
-pad-back on save agree exactly.
+pad-back on save agree exactly, from any memory order of the volume; the
+writer's layout pass counts the bytes it lays out under a profiler.
 """
 
 import struct
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 from boa_tpu.io import nifti as jn
 from boa_tpu.ops import cropping as jcrop
 from boa_tpu_torch.io import nifti as tn
 from boa_tpu_torch.ops import cropping as tcrop
+from boa_tpu_torch.utils import timing
 
 AFFINES = {
     "axial_lps": np.array([[-0.7, 0, 0, 120], [0, -0.7, 0, 95], [0, 0, 2.5, -400],
@@ -167,3 +170,75 @@ def test_empty_like_matches_reference():
     got, want = tn.empty_like((3, 4, 5), aff), jn.empty_like((3, 4, 5), aff)
     _same_image(got, want)
     assert got.affine is not aff
+
+
+def _ordered(dtype, shape, order):
+    """A volume of `shape` in the memory order `order`: C, F, reversed (a
+    [::-1] view of a C array) or transposed (a C array's x and y swapped)."""
+    if order == "transposed":
+        return _data(dtype, (shape[1], shape[0], shape[2]), seed=5).transpose(1, 0, 2)
+    data = _data(dtype, shape, seed=5)
+    if order == "F":
+        return np.asfortranarray(data)
+    return data[::-1] if order == "reversed" else data
+
+
+def _crops(shape, aff):
+    """The same in-plane crop of `shape` as each package's BodyCrop: the
+    volume sits at (2, 3) in a grid 5 wider in x and 4 in y."""
+    nx, ny, nz = shape
+    grid = (nx + 5, ny + 4, nz)
+    return tuple(mod.BodyCrop(orig_shape=grid, orig_affine=aff.copy(), x0=2, x1=2 + nx,
+                              y0=3, y1=3 + ny) for mod in (tcrop, jcrop))
+
+
+@pytest.mark.parametrize("suffix", [".nii", ".nii.gz"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 7), (130, 70, 33), (64, 64, 64)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
+@pytest.mark.parametrize("cropped", [False, True])
+@pytest.mark.parametrize("order", ["C", "F", "reversed", "transposed"])
+def test_layouts_write_reference_bytes(tmp_path, monkeypatch, order, cropped, dtype,
+                                       shape, suffix):
+    """A 3-D volume in any memory order, cropped or not, gives the
+    reference's file: slabs of 4 slices, so a volume spans several and the
+    last may be short."""
+    data = _ordered(dtype, shape, order)
+    assert data.flags.f_contiguous == (order == "F" or shape == (1, 1, 1))
+    aff = AFFINES["oblique_permuted"]
+    tinfo, jinfo = _crops(shape, aff) if cropped else (None, None)
+    grid = tinfo.orig_shape if cropped else shape
+    monkeypatch.setattr(tn, "_SLAB_BYTES", 4 * grid[0] * grid[1] * data.itemsize)
+    paths = {k: tmp_path / k / f"x{suffix}" for k in ("t", "j")}
+    for p in paths.values():
+        p.parent.mkdir()
+    tn.save(tn.NiftiImage(data=data, affine=aff.copy(), crop_info=tinfo), paths["t"])
+    jn.save(jn.NiftiImage(data=data, affine=aff.copy(), crop_info=jinfo), paths["j"])
+    assert paths["t"].read_bytes() == paths["j"].read_bytes()
+    want = tcrop.pad_back(data, tinfo) if cropped else data
+    np.testing.assert_array_equal(tn.load(paths["t"]).data, want)
+
+
+@pytest.mark.parametrize("case", ["c_cropped", "fortran", "4d"])
+def test_layout_bytes_counted(tmp_path, fresh_recorder, case):
+    """`nifti_layout_bytes`: the padded voxel bytes of a C-ordered cropped
+    3-D save, 0 where the volume is Fortran-ordered or not 3-D."""
+    shape = (70, 66, 9)
+    aff = AFFINES["axial_lps"]
+    data = _data(np.int16, shape + ((2,) if case == "4d" else ()), seed=6)
+    if case == "fortran":
+        data = np.asfortranarray(data)
+    crop = _crops(shape, aff)[0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        tn.save(tn.NiftiImage(data=data, affine=aff.copy(), crop_info=crop),
+                tmp_path / "x.nii.gz")
+    tr = timing.last_trace()
+    want = 75 * 70 * 9 * 2 if case == "c_cropped" else 0
+    assert tr.total("nifti_layout_bytes") == want
+    assert tr.total("save_bytes") == 75 * 70 * 9 * 2 * (2 if case == "4d" else 1)
+
+
+@pytest.fixture()
+def fresh_recorder(monkeypatch):
+    """The profiler's recorder as at the process's start."""
+    monkeypatch.setattr(timing, "_capture", None)
+    monkeypatch.setattr(timing, "_taking", False)
