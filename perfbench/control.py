@@ -1,14 +1,15 @@
 """The control of `correct`: the plain reference computed one precision below
 the configuration's (float8 e4m3 operands for its bfloat16, `reference/unet.py`)
-put in the program's place, judged by the same comparison as the program.
+put in the program's place, judged by the same comparison as the program
+(the front's `judge(..., fp8=True)`).
 
     python3 perfbench/control.py --workload <cell> --seeds <n> [<n> ...]
 
 On the card, at the cell's own sizes: for each seed the cell's inputs and
 weights, the studies that a run's check would sample from one block of its
 backlog, the float32 reference, the control's labels (the argmax of its
-fused logits, merged and written as the program would write them), and the
-readings the check compares. Prints one JSON line per seed. The program is
+fused logits, written as the program would write them), and the readings the
+check compares. Prints one JSON line per seed. The program is
 not run.
 """
 
@@ -30,21 +31,11 @@ def control_readings(root: Path, workload: str, seed: int, device) -> dict:
     work = Path(tempfile.mkdtemp(prefix="perfbench-control-"))
     try:
         s = harness.Setup(root, workload, seed, device, work)
-        order = harness.job_order(s.traffic, seed, 1)
-        pick = [order[j] for j in harness.pick_studies(s, [(i, None) for i in order])]
+        jobs = [(i, None) for i in harness.job_order(s.traffic, seed, 1)]
+        picked = [jobs[j] for j in harness.pick_studies(s, jobs)]
         trees = [harness._params_on(p, s.device) for p in s.params]
-        gaps, faults = [], 0
-        for i in pick:
-            geom = study.StudyGeometry(s.cts[i], s.affines[i], s.cfg["spacing"], s.device)
-            low = [study.fused_logits(t, s.cfg, geom, fp8=True).argmax(0) for t in trees]
-            labels = study.written_labels(geom, study.merged_labels(s.cfg, low))
-            judge = study.Judge(labels, geom, s.cfg, s.device)
-            for k, t in enumerate(trees):
-                judge.add_model(k, study.fused_logits(t, s.cfg, geom))
-            r = judge.readings()
-            gaps.append(r["gap"])
-            faults += r["label_faults"]
-        return study.summarize(gaps, faults)
+        r = s.front.judge(s, picked, trees, fp8=True)
+        return study.summarize(r["gaps"], r["label_faults"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

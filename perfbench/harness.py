@@ -3,16 +3,19 @@ check against the plain reference, and the result line.
 
 Everything that belongs to a cell is found by name: the cell in
 `BENCHMARK.json`, its configuration file (`configs/<config>.json`, the
-manifest's `file`), its traffic mix (`traffic/<mix>.json`), and one reader
-per metric (`metrics/<metric>.py`, a `read(art)` returning a number or
-None). This module holds no branch on a cell, a mix or a metric.
+manifest's `file`), its traffic mix (`traffic/<mix>.json`), one reader per
+metric (`metrics/<metric>.py`, a `read(art)` returning a number or None),
+the configuration's front door (`fronts/<program.front>.py`: how the
+program runs one study and how the reference judges what it wrote) and its
+network family (`nets/<network.family, lowercased>.py`: the seeded leaves,
+the plans' architecture block, the plain reference's forward and the work
+counts). This module holds no branch on a cell, a mix, a metric, a front or
+a family.
 
-The program under test is `boa_tpu_torch`: the window drives its
-TotalSegmentator API, `boa_tpu_torch.python_api.totalsegmentator`, over a
-backlog of phantom studies written as `.nii` files, one study at a time as
-a worker of concurrency 1 does: the input's load, `predict_image` on the
-card, the write of `total.nii.gz`. The benchmark's clock runs around each
-call and around the whole backlog.
+The program under test is `boa_tpu_torch`: the window drives the front's
+entry point over a backlog of phantom studies written as `.nii` files, one
+study at a time as a worker of concurrency 1 does. The benchmark's clock
+runs around each call and around the whole backlog.
 """
 
 from __future__ import annotations
@@ -61,13 +64,21 @@ def load_traffic(root: Path, mix: str) -> dict:
     return json.loads((Path(root) / "perfbench" / "traffic" / f"{mix}.json").read_text())
 
 
-def metric_reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
+def find(root: Path, kind: str, name: str):
+    """The module `perfbench/<kind>/<name>.py` of the checkout `root`, or of
+    this benchmark where `root` has none (a root that adds only data files)."""
+    path = Path(root) / "perfbench" / kind / f"{name}.py"
+    if not path.is_file():
+        path = BENCH / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"perfbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: Path = BENCH.parent):
+    return find(root, "metrics", name).read
 
 
 def metrics_of(manifest: dict, workload: str, key: str) -> list[dict]:
@@ -106,25 +117,24 @@ class Setup:
     program is called through `segment`."""
 
     def __init__(self, root: Path, workload: str, seed: int, device, work: Path):
-        from boa_tpu_torch import python_api
-        from boa_tpu_torch.weights.store import ModelStore
-
         t0 = time.perf_counter()
         self.manifest = load_manifest(root)
         self.workload, centry = cell(self.manifest, workload)
         self.cfg = load_config(root, centry)
         self.traffic = load_traffic(root, self.workload["traffic"])
+        self.front = find(root, "fronts", self.cfg["program"]["front"])
+        self.family = find(root, "nets", self.cfg["network"]["family"].lower())
         self.seed, self.device, self.work = seed, torch.device(device), work
-        self.api = python_api
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_subseed(seed, 0))
-        self.params = []      # host leaves of each model, for the reference
+        self.params = []      # host leaves of each model, for the store and the reference
         for m in self.cfg["models"]:
-            tree = weights.make_params(self.cfg["network"], int(m["num_classes"]), gen,
-                                       self.device, self.cfg["head_bias"], int(m["task_id"]))
-            weights.write_store(work / "store", m, self.cfg, tree)
+            tree = weights.make_params(
+                self.family.leaf_specs(self.cfg["network"], int(m["num_classes"])), gen,
+                self.device, self.cfg["head_bias"], int(m["task_id"]))
             self.params.append(weights.flatten(tree))
             del tree
+        self.store = self.front.write_store(self)
         t1 = time.perf_counter()
         self.cts, self.affines, self.paths = [], [], []
         (work / "in").mkdir()
@@ -138,7 +148,6 @@ class Setup:
             self.cts.append(ct)
             self.affines.append(aff)
             self.paths.append(path)
-        self.store = ModelStore(root=work / "store")
         self.n_jobs = 0
         self.phases = {"weights_store_s": t1 - t0, "phantoms_s": time.perf_counter() - t1}
 
@@ -147,14 +156,11 @@ class Setup:
         out = []
         for i in order:
             self.n_jobs += 1
-            out.append((i, self.work / "out" / f"{tag}{self.n_jobs}" / "total.nii.gz"))
+            out.append((i, self.work / "out" / f"{tag}{self.n_jobs}" / self.front.output_name))
         return out
 
     def segment(self, i: int, output: Path, spans: dict | None = None) -> None:
-        prog = self.cfg["program"]
-        self.api.totalsegmentator(self.paths[i], output, ml=True, fast=prog["fast"],
-                                  task=prog["task"], quiet=True, store=self.store,
-                                  device=self.device.type, spans=spans)
+        self.front.segment(self, i, output, spans)
 
     def timed_run(self, jobs: list) -> dict:
         """The backlog, one study after another, on the benchmark's clock."""
@@ -191,8 +197,8 @@ def backlog_blocks(traffic: dict, seconds: float) -> int:
 
 def _traced(s: Setup, order: list[int]) -> dict:
     """The traced window under the profiler, then the program's spans of the
-    same studies through `totalsegmentator(spans=...)`, with the benchmark's
-    clock around each call."""
+    same studies through the front's `segment(spans=...)`, with the
+    benchmark's clock around each call."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from boa_tpu_torch.ops import pallas_conv, rowconv
@@ -240,31 +246,12 @@ def pick_studies(s: Setup, jobs: list) -> list[int]:
 
 def check(s: Setup, jobs: list) -> dict:
     """The reference's readings over a sample of the window's studies drawn
-    from the seed, the longest among them."""
+    from the seed, the longest among them, judged by the front."""
     pick = pick_studies(s, jobs)
-    gaps, faults, missing = [], 0, 0
     trees = [_params_on(p, s.device) for p in s.params]
-    for j in pick:
-        i, path = jobs[j]
-        if not path.exists():
-            missing += 1
-            continue
-        labels, aff = ref_nifti.read(path)
-        if labels.shape != s.cts[i].shape or not np.allclose(aff, s.affines[i], atol=1e-3):
-            faults += int(np.prod(s.cts[i].shape))
-            continue
-        geom = ref_study.StudyGeometry(s.cts[i], s.affines[i], s.cfg["spacing"], s.device)
-        judge = ref_study.Judge(labels, geom, s.cfg, s.device)
-        for k, tree in enumerate(trees):
-            logits = ref_study.fused_logits(tree, s.cfg, geom)
-            judge.add_model(k, logits)
-            del logits
-        r = judge.readings()
-        gaps.append(r["gap"])
-        faults += r["label_faults"]
-        del judge, geom
-    out = ref_study.summarize(gaps, faults)
-    out.update(missing=missing, studies=len(pick))
+    r = s.front.judge(s, [jobs[j] for j in pick], trees)
+    out = ref_study.summarize(r["gaps"], r["label_faults"])
+    out.update(missing=r["missing"], studies=len(pick))
     return out
 
 
@@ -296,7 +283,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         if cuda:
             torch.cuda.synchronize(s.device)
             torch.cuda.reset_peak_memory_stats(s.device)
-        art = {"config": s.cfg, "traffic": s.traffic,
+        art = {"config": s.cfg, "family": s.family, "traffic": s.traffic,
                "setup_s": time.perf_counter() - t_start}
         if traced:
             order = job_order(s.traffic, seed, 1)[:int(s.traffic["trace_studies"])]
@@ -311,7 +298,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         art["memory_peak_bytes"] = peak
         metrics = {}
         for m in metrics_of(s.manifest, workload, key):
-            v = metric_reader(m["name"])(art)
+            v = metric_reader(m["name"], root)(art)
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
         window = art["window"]

@@ -1,10 +1,10 @@
 """The whole network's share of the bf16 peak over the traced window: the
-PlainConvUNet's operations per tile forward (`work/plainconvunet.py`) times
-the tile forwards of the traced studies, over the window's seconds times
-989 TFLOP/s. It bounds any gain a later change claims once a kernel leaves
-the path."""
+family's operations per tile forward (`nets/<family>.py:layers`, the mean
+over the configuration's models) times the tile forwards of the traced
+studies, over the window's seconds times 989 TFLOP/s. It bounds any gain a
+later change claims once a kernel leaves the path."""
 
-from perfbench.work import h100, plainconvunet
+from perfbench.work import h100
 
 
 def read(art):
@@ -13,7 +13,7 @@ def read(art):
     if not tr or not tiles:
         return None
     cfg = art["config"]
-    per_tile = sum(plainconvunet.forward_flops(cfg["network"], cfg["patch_size"],
-                                               int(m["num_classes"]))
-                   for m in cfg["models"]) / len(cfg["models"])
+    per_tile = sum(sum(x["flops"] for x in art["family"].layers(
+        cfg["network"], cfg["patch_size"], int(m["num_classes"])))
+        for m in cfg["models"]) / len(cfg["models"])
     return 100.0 * per_tile * tiles / (tr["window_s"] * h100.BF16_FLOP_PER_S)

@@ -1,16 +1,10 @@
-"""Plain PyTorch forward of nnU-Net's PlainConvUNet, the benchmark's reference.
+"""Plain PyTorch pieces of nnU-Net's U-Nets, for the benchmark's references
+(`nets/<family>.py:forward`): float32 with TF32 off, the store's weight
+layouts, the conv -> instance norm -> LeakyReLU block, and the control's
+float8 rounding. No kernel of the port, no packing and no caching.
 
-The network as published by dynamic_network_architectures (nnU-Net v2):
-per encoder stage `n_conv` blocks of Conv3d (the first at the stage's
-stride) -> InstanceNorm3d(affine, eps) -> LeakyReLU(slope); per decoder
-stage a ConvTranspose3d(kernel = stride) upsampling, the concatenation
-[upsampled, skip] and `n_conv` blocks; a 1x1x1 head on the last decoder
-stage. Float32 with TF32 off, no kernel of the port, no packing and no
-caching: `torch.nn.functional` calls on the parameter leaves as the
-benchmark made them.
-
-Leaves use the store's layout (`perfbench/weights.py`): a conv weight is
-(kx, ky, kz, c_in, c_out), the transposed conv's (kx, ky, kz, c_out, c_in).
+Leaves use the store's layout: a conv weight is (kx, ky, kz, c_in, c_out),
+the transposed conv's (kx, ky, kz, c_out, c_in).
 
 `fp8=True` is the control of PERF.md: every convolution's two operands
 (activation and weight) are rounded to float8 e4m3 with a per-tensor
@@ -56,7 +50,9 @@ def transp_weight(w: torch.Tensor) -> torch.Tensor:
     return w.permute(4, 3, 0, 1, 2).contiguous()
 
 
-def _block(h, p, stride, eps, slope, fp8):
+def conv_block(h, p, stride, eps, slope, fp8):
+    """Conv3d (same padding) -> InstanceNorm3d(affine, eps) -> LeakyReLU(slope)
+    of the leaves `p` (`w`, `b`, `norm_scale`, `norm_bias`)."""
     w = conv_weight(p["w"])
     if fp8:
         h, w = round_e4m3(h), round_e4m3(w)
@@ -67,36 +63,3 @@ def _block(h, p, stride, eps, slope, fp8):
     y = (y - mean) * torch.rsqrt(var + eps)
     y = y * p["norm_scale"].view(1, -1, 1, 1, 1) + p["norm_bias"].view(1, -1, 1, 1, 1)
     return torch.where(y >= 0, y, y * slope)
-
-
-@torch.no_grad()
-def forward(params: dict, net: dict, x: torch.Tensor, fp8: bool = False) -> torch.Tensor:
-    """(N, C, X, Y, Z) float32 -> logits (N, classes, X, Y, Z) float32.
-
-    `net` holds the configuration's network keys (`strides`, `norm_eps`,
-    `nonlin_slope`); `params` the leaves as float32 tensors on x's device."""
-    eps, slope = float(net["norm_eps"]), float(net["nonlin_slope"])
-    strides = net["strides"]
-    skips = []
-    h = x.float()
-    for s, stage in enumerate(params["encoder"]):
-        for b, blk in enumerate(stage):
-            h = _block(h, blk, strides[s] if b == 0 else (1, 1, 1), eps, slope, fp8)
-        skips.append(h)
-    y = skips[-1]
-    n = len(skips)
-    for i, st in enumerate(params["decoder"]):
-        w = transp_weight(st["transp"]["w"])
-        up_in = y
-        if fp8:
-            up_in, w = round_e4m3(up_in), round_e4m3(w)
-        stride = tuple(strides[n - 1 - i])
-        y = F.conv_transpose3d(up_in, w, st["transp"]["b"], stride=stride)
-        y = torch.cat([y, skips[n - 2 - i]], dim=1)
-        for blk in st["convs"]:
-            y = _block(y, blk, (1, 1, 1), eps, slope, fp8)
-    head = params["seg_heads"][-1]
-    w = conv_weight(head["w"])
-    if fp8:
-        y, w = round_e4m3(y), round_e4m3(w)
-    return F.conv3d(y, w, head["b"])

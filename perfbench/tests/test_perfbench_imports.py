@@ -1,6 +1,6 @@
 """The import rule: nothing the harness loads is JAX, jaxlib, flax or the JAX
-package (top-level names compared whole), and the reference loads nothing
-of the port."""
+package (top-level names compared whole), and the reference and the network
+families load nothing of the port."""
 
 import ast
 import subprocess
@@ -33,15 +33,15 @@ def test_no_jax_in_the_harness_sources():
 
 
 def test_reference_imports_nothing_of_the_port():
-    for p in (BENCH / "reference").rglob("*.py"):
+    for p in [*(BENCH / "reference").rglob("*.py"), *(BENCH / "nets").rglob("*.py")]:
         assert "boa_tpu_torch" not in _imports(p), p
         assert not (_imports(p) & FORBIDDEN), p
 
 
 def test_loaded_modules_of_a_run():
-    """What a run imports, the program's serving path with it, holds no
-    JAX-side module by whole top-level name (the port's own name begins with
-    the JAX package's)."""
+    """What a run imports, the program's serving path, every front and every
+    family with it, holds no JAX-side module by whole top-level name (the
+    port's own name begins with the JAX package's)."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "from perfbench import harness, control, trace\n"
@@ -51,6 +51,9 @@ def test_loaded_modules_of_a_run():
         "import torch.profiler\n"
         "for m in sorted(harness.BENCH.glob('metrics/*.py')):\n"
         "    harness.metric_reader(m.stem)\n"
+        "for kind in ('fronts', 'nets'):\n"
+        "    for m in sorted(harness.BENCH.glob(kind + '/[!_]*.py')):\n"
+        "        harness.find(harness.BENCH.parent, kind, m.stem)\n"
         "print(harness.forbidden_modules())\n" % str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=REPO)

@@ -7,6 +7,8 @@ import torch
 import torch.nn as nn
 
 from perfbench import phantom, weights
+from perfbench.fronts import totalsegmentator as ts_front
+from perfbench.nets import plainconvunet
 from perfbench.reference import geometry as geo
 from perfbench.reference import unet
 from perfbench.tests import tiny
@@ -50,7 +52,7 @@ def _nn_forward(params, net, x):
 
 def _params(seed=0, classes=5):
     gen = torch.Generator().manual_seed(seed)
-    return weights.make_params(tiny.NET, classes, gen, "cpu",
+    return weights.make_params(plainconvunet.leaf_specs(tiny.NET, classes), gen, "cpu",
                                {"sd": 3.0, "seed": 7}, 297)
 
 
@@ -58,7 +60,7 @@ def test_forward_against_torch_nn():
     params = _params()
     x = torch.randn(1, 1, 16, 16, 16, generator=torch.Generator().manual_seed(1))
     with unet.exact_float32(), torch.no_grad():
-        got = unet.forward(params, tiny.NET, x)
+        got = plainconvunet.forward(params, tiny.NET, x)
         want = _nn_forward(params, tiny.NET, x)
     assert got.shape == (1, 5, 16, 16, 16)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -68,10 +70,10 @@ def test_fp8_control_departs_more_than_bf16():
     params = _params()
     x = torch.randn(1, 1, 16, 16, 16, generator=torch.Generator().manual_seed(2))
     with unet.exact_float32():
-        ref = unet.forward(params, tiny.NET, x)
-        low = unet.forward(params, tiny.NET, x, fp8=True)
-        bf = unet.forward(_map(params, lambda t: t.bfloat16().float()), tiny.NET,
-                          x.bfloat16().float())
+        ref = plainconvunet.forward(params, tiny.NET, x)
+        low = plainconvunet.forward(params, tiny.NET, x, fp8=True)
+        bf = plainconvunet.forward(_map(params, lambda t: t.bfloat16().float()),
+                                   tiny.NET, x.bfloat16().float())
     assert (low - ref).abs().max() > 5 * (bf - ref).abs().max()
 
 
@@ -85,7 +87,7 @@ def test_params_match_the_port_layout():
     model = params_from_numpy(_numpy_tree(params), cfg, "cpu")
     x = torch.randn(1, 1, 16, 16, 16, generator=torch.Generator().manual_seed(3))
     with unet.exact_float32(), torch.no_grad():
-        want = unet.forward(params, tiny.NET, x)
+        want = plainconvunet.forward(params, tiny.NET, x)
         got = model(x.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -149,8 +151,6 @@ def test_judge_of_the_five_part_merge():
     import json
     from pathlib import Path
 
-    from perfbench.reference import study
-
     cfg = json.loads((Path(__file__).resolve().parents[2]
                       / "perfbench/configs/ts_total.json").read_text())
     gen = torch.Generator().manual_seed(5)
@@ -158,7 +158,7 @@ def test_judge_of_the_five_part_merge():
     logits = [torch.randn((m["num_classes"],) + shape, generator=gen) for m in cfg["models"]]
     for lg in logits:
         lg[0] += 1.0   # background often first, as with the background lead
-    merged = study.merged_labels(cfg, [lg.argmax(0) for lg in logits])
+    merged = ts_front.merged_labels(cfg, [lg.argmax(0) for lg in logits])
 
     class Geom:
         box = (0, shape[0], 0, shape[1])
@@ -166,7 +166,7 @@ def test_judge_of_the_five_part_merge():
         index = [torch.arange(n) for n in shape]
 
     def judge(labels):
-        j = study.Judge(labels.numpy().astype(np.uint8), Geom, cfg, "cpu")
+        j = ts_front.Judge(labels.numpy().astype(np.uint8), Geom, cfg, "cpu")
         for k, lg in enumerate(logits):
             j.add_model(k, lg)
         return j

@@ -2,7 +2,8 @@
 
 import pytest
 
-from perfbench.work import bounds, h100, plainconvunet, roofline, rowconv
+from perfbench.nets import plainconvunet
+from perfbench.work import bounds, h100, roofline, rowconv
 
 NET = {"features_per_stage": [4, 8], "kernel_sizes": [[3, 3, 3]] * 2,
        "strides": [[1, 1, 1], [2, 2, 2]], "n_conv_per_stage": [2, 2],
@@ -25,7 +26,7 @@ def test_small_unet_by_hand():
     assert list(got) == list(by_hand)
     for name, (flops, nbytes) in by_hand.items():
         assert got[name]["flops"] == flops and got[name]["bytes"] == nbytes, name
-    assert plainconvunet.forward_flops(NET, (8, 8, 8), 3) == sum(f for f, _ in by_hand.values())
+    assert sum(x["flops"] for x in got.values()) == sum(f for f, _ in by_hand.values())
 
 
 def test_published_net_k1_bound():
@@ -37,7 +38,7 @@ def test_published_net_k1_bound():
     k1 = sum(bounds.least_seconds(layers[n]["flops"], layers[n]["bytes"])
              for n in rowconv.layer_names("k1", 6))
     assert k1 == pytest.approx(0.510e-3, rel=0.01)   # PERF.md's K1 bound a tile
-    assert plainconvunet.forward_flops(net, (128,) * 3, 118) == pytest.approx(0.970e12, rel=1e-3)
+    assert sum(x["flops"] for x in layers.values()) == pytest.approx(0.970e12, rel=1e-3)
 
 
 def test_roofline_share_from_a_trace():
@@ -46,7 +47,8 @@ def test_roofline_share_from_a_trace():
     layers = {x["name"]: x for x in plainconvunet.layers(NET, (8, 8, 8), 3)}
     least = sum(bounds.least_seconds(layers[n]["flops"], layers[n]["bytes"])
                 for n in rowconv.layer_names("k1", 2))
-    art = {"config": cfg, "launches": {"conv3d_rows": 8, "conv3d_in_act": 0},
+    art = {"config": cfg, "family": plainconvunet,
+           "launches": {"conv3d_rows": 8, "conv3d_in_act": 0},
            "trace": {"kernel_s": {"void conv_in_act_kernel<64>(...)": 3 * least,
                                   "conv1_kernel": least, "elementwise": 5.0}}}
     assert roofline.share(art, ("k1",)) == pytest.approx(50.0)

@@ -11,7 +11,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 
-NET = {"n_stages": 3, "features_per_stage": [8, 16, 32],
+NET = {"family": "PlainConvUNet", "n_stages": 3, "features_per_stage": [8, 16, 32],
        "kernel_sizes": [[3, 3, 3]] * 3, "strides": [[1, 1, 1], [2, 2, 2], [2, 2, 2]],
        "n_conv_per_stage": [2, 2, 2], "n_conv_per_stage_decoder": [2, 2],
        "conv_bias": True, "norm_eps": 1e-5, "nonlin_slope": 0.01, "input_channels": 1}

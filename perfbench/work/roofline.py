@@ -1,9 +1,9 @@
 """Roofline share of row-conv kernels in a traced window: the least time of
-the layers their launches computed (`work/bounds.py` on
-`work/plainconvunet.py`'s counts at the configuration's tile), over their
-device time in the trace (`work/rowconv.py`'s name table)."""
+the layers their launches computed (`work/bounds.py` on the family's counts,
+`nets/<family>.py:layers`, at the configuration's tile), over their device
+time in the trace (`work/rowconv.py`'s name table)."""
 
-from perfbench.work import bounds, plainconvunet, rowconv
+from perfbench.work import bounds, rowconv
 
 
 def share(art, kernels) -> float | None:
@@ -13,7 +13,7 @@ def share(art, kernels) -> float | None:
     cfg = art["config"]
     net, patch = cfg["network"], cfg["patch_size"]
     n_st = len(net["features_per_stage"])
-    layers = {m["task_id"]: {x["name"]: x for x in plainconvunet.layers(
+    layers = {m["task_id"]: {x["name"]: x for x in art["family"].layers(
         net, patch, int(m["num_classes"]))} for m in cfg["models"]}
     least = device = 0.0
     for k in kernels:

@@ -2,7 +2,7 @@
 forward (`boa_tpu_torch/models/unet.py:_rowconv_forward`): for each kernel,
 the launch counter it adds to (`boa_tpu_torch/ops/rowconv.py:LAUNCHES`),
 the substrings of its CUDA function names in a profiler trace, and the
-layers of the PlainConvUNet (`work/plainconvunet.py` names; `last` is the
+layers of the PlainConvUNet (`nets/plainconvunet.py:layers` names; `last` is the
 last decoder stage) that its launches compute, one launch a layer.
 
 K1 runs `csrc/conv_in_act.cu` (`conv_in_act_kernel`, the 1-channel input
